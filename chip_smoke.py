@@ -7,19 +7,35 @@ Needs one CUDA card; exits non-zero, printing no result, without one.
 Phases, each of which fails the run:
 
   1. the device, and its name and power limit as nvidia-smi reports them;
-  2. build every CUDA kernel from ``dsgan_tpu_torch/csrc`` with nvcc;
+  2. build every CUDA kernel from ``dsgan_tpu_torch/csrc`` with nvcc, one
+     nvcc per source, all started together;
   3. hold K1 (block_core_fwd) at the c1-c5 shapes and K3 (block_core2_fwd)
      at the uc1-uc4 shapes of the 256x256 generator against their plain
      PyTorch versions on the card: bf16 with tanh GELU at batch 1 and 16
      (rtol = atol = 2e-2), f32 with erf GELU at batch 1 (2e-4, TF32 off);
      time each with CUDA events beside its bound;
-  4. serve 256x256 uint8 requests at batch 1 and 16 through the full-width
+  4. the same for K2 (block_core_bwd) and K4 (block_core2_bwd) on a
+     random cotangent: bf16/tanh at batch 16 (dn, dx and the folded dh
+     within 2e-2 / 2e-2 elementwise; every weight gradient and S sum within
+     rel-L2 1e-2 and max-abs 2e-2 * max|ref|), f32/erf at batch 1 (1e-3
+     relative, atol 1e-3 * max|ref|, TF32 off);
+  5. serve 256x256 uint8 requests at batch 1 and 16 through the full-width
      MixConvNeXtML (bf16, seeded weights carried in through
      ``state_dict_from_jax``), with every launch counter set to 0 first:
-     every ConvNeXt block must have run its kernel (5 K1 + 4 K3 launches
-     per forward), the outputs must be uint8 of the right shape, and the
-     kernel path's float output must agree with the plain path's;
-  5. one JSON line of kernel numbers, then the result line.
+     5 K1 + 4 K3 launches per forward, uint8 outputs of the right shape,
+     and the kernel path's float output within 2e-2 of the plain path's;
+  6. train: the pix2pix step at full width (MixConvNeXtML + PatchGAN ndf 32
+     + VGG16 4 taps, 256x256, batch 16, bf16, pool 50), counters set to 0
+     first, 2 warm-up and 5 timed steps: 5 K1 + 4 K3 + 5 K2 + 4 K4 launches
+     per step, finite losses, parameters that moved; a torch.profiler split
+     of one step by kernel class; then, from one state, the G gradient of
+     the step's loss through K1-K4 against the same through the plain
+     versions (``gradient_check``, ``GRAD_GATE``): block by block on the
+     cotangent the step delivers, every K2/K4 output and the folded dh,
+     and over the whole generator (where bf16 rounding accumulates along
+     the backward) the median and the distance to the f32 gradient, with
+     faulty controls that the gate must refuse;
+  7. one JSON line of kernel numbers, then the result line.
 
 ``--out DIR`` also writes the per-shape numbers to DIR/chip_smoke.json.
 """
@@ -32,6 +48,19 @@ import time
 
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
 TOL_F32 = dict(rtol=2e-4, atol=2e-4)
+# backward: elementwise outputs (rtol, atol or atol / max|ref|), sums (rel-L2, max-abs / max|ref|)
+TOL_BWD = {"bfloat16": dict(elem=(2e-2, 2e-2), scaled=False, rel_l2=1e-2, max_abs=2e-2),
+           "float32": dict(elem=(1e-3, 1e-3), scaled=True, rel_l2=None, max_abs=1e-3)}
+TRAIN = dict(batch=16, size=256, warmup=2, steps=5)
+# the train step's G gradient, kernel path vs plain path: rel-L2 of each K2/K4
+# output at block level; median over the block weights of the whole
+# generator; kernel path's median distance to the f32 gradient over the plain
+# path's. CONTROLS put faults of a known size into K2/K4 (see ``faulty``);
+# the gate must refuse those in MUST_FAIL. Set from readings on an H100 at
+# this phase's size (PERF.md, "Gradient gate").
+GRAD_GATE = dict(block=5e-3, median=2e-2, ratio=1.05)
+CONTROLS = [("gain", 0.02), ("gain", 0.01), ("noise", 0.02), ("noise", 0.01)]
+MUST_FAIL = [f"{kind} {size}" for kind, size in CONTROLS]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores (the f32 kernel's FMA path).
 HBM_BPS = 3.35e12
@@ -70,6 +99,105 @@ def bound(b, hw, c, p, dtype_name):
     flops = 2 * b * hw * (4 * c * c + 4 * c * p + c * p)
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound_bwd(b, hw, c, p, dtype_name):
+    """Least time of one block-core backward call: h, x and the cotangent
+    read once, dn and dx written once, the weights read and their f32
+    gradients written once, against the FLOPs of its six GEMMs (the
+    hidden recomputed, da, dn, dx, dW1, dW2, dWs)."""
+    s = 2 if dtype_name == "bfloat16" else 4
+    weights = 4 * c * c + 4 * c * p + c * p + 4 * c
+    grads = 4 * (weights + p)
+    nbytes = b * hw * (2 * c + p) * s + b * hw * 2 * c * s + weights * s + grads + 4 * b * c * 4
+    flops = 2 * b * hw * (12 * c * c + 8 * c * p + 2 * c * p)
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
+
+
+def compare_bwd(torch, names, got, want, tol):
+    """(max abs error of the elementwise outputs, worst rel-L2 of the sums, ok)."""
+    worst_abs, worst_rel, ok = 0.0, 0.0, True
+    for name, g, w in zip(names, got, want):
+        g, w = g.float(), w.float()
+        ok &= bool(torch.isfinite(g).all()) and g.shape == w.shape
+        err = (g - w).abs()
+        scale = float(w.abs().max())
+        if name.startswith(("dn", "dx", "dh")):
+            rtol, atol = tol["elem"]
+            atol = atol * scale if tol["scaled"] else atol
+            ok &= bool((err <= atol + rtol * w.abs()).all())
+            worst_abs = max(worst_abs, float(err.max()))
+        else:
+            r = rel_l2(g, w)
+            worst_rel = max(worst_rel, r)
+            ok &= float(err.max()) <= tol["max_abs"] * scale
+            if tol["rel_l2"] is not None:
+                ok &= r <= tol["rel_l2"]
+    return worst_abs, worst_rel, ok
+
+
+def check_backward(torch, bc, instance_stats, batch, dtype, gelu, iters):
+    """Each K2 / K4 site at this batch and dtype on a random cotangent:
+    kernel vs plain version, and the InstanceNorm fold of each."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(4321 + batch)
+    dname = str(dtype).split(".")[-1]
+
+    def act(c, side):
+        t = torch.randn((batch, c, side, side), generator=gen, device="cuda")
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    for kernel, sites in (("K2", K1_SITES), ("K4", K3_SITES)):
+        for site, side, parts, p in sites:
+            c = sum(parts)
+            w1, b1, w2, b2, ws = [
+                (torch.randn(s, generator=gen, device="cuda") * k).to(dtype)
+                for s, k in (((c, 4 * c), 0.05), ((4 * c,), 1.0), ((4 * c, p), 0.05), ((p,), 1.0),
+                             ((c, p), 0.05))]
+            hs, xs = [act(ci, side) for ci in parts], [act(ci, side) for ci in parts]
+            g = act(p, side)
+            stats = [s for h in hs for s in instance_stats(h)]
+            with torch.no_grad():
+                if kernel == "K2":
+                    packed = bc.pack_weights(w1, b1, w2, b2, ws, dtype)
+                    run = lambda: bc.block_core_bwd(hs[0], xs[0], *stats, g, w1, b1, w2, ws,
+                                                    gelu, packed=packed)
+                    plain = lambda: bc.block_core_bwd_reference(hs[0], xs[0], *stats, g, w1, b1,
+                                                                w2, ws, gelu)
+                    names = "dn dx dW1 db1 dW2 db2 dWs S1 S2".split()
+                else:
+                    packed = bc.pack_weights(w1, b1, w2, b2, ws, dtype, c1=parts[0])
+                    run = lambda: bc.block_core2_bwd(*hs, *xs, *stats, g, w1, b1, w2, ws, gelu,
+                                                     packed=packed)
+                    plain = lambda: bc.block_core2_bwd_reference(*hs, *xs, *stats, g, w1, b1, w2,
+                                                                 ws, gelu)
+                    names = "dna dnb dxa dxb dW1 db1 dW2 db2 dWs S1a S2a S1b S2b".split()
+                got, want = run(), plain()
+                got = list(got) + folds(bc, got, hs, stats)
+                want = list(want) + folds(bc, want, hs, stats)
+                names = names + ["dh"] * len(hs)
+                torch.cuda.synchronize()
+                max_abs, worst_rel, ok = compare_bwd(torch, names, got, want, TOL_BWD[dname])
+                del got, want
+                ms = time_ms(torch, run, iters)
+                plain_ms = time_ms(torch, plain, iters)
+            b_ms, b_by = bound_bwd(batch, side * side, c, p, dname)
+            row = dict(kernel=kernel, site=site, batch=batch, dtype=dname, gelu=gelu,
+                       max_abs_err=max_abs, worst_rel_l2=worst_rel, ok=ok, ms=ms,
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, tm=bc.bwd_rows(
+                           packed.w1.element_size(), packed.w1.shape[0],
+                           bc._hidden_chunk(packed.w1.shape[1]), packed.w2.shape[1]))
+            print(json.dumps(row))
+            rows.append(row)
+            if not ok:
+                fail(f"{kernel} at {site} (batch {batch}, {dname}) disagrees with its plain "
+                     f"version: max abs err {max_abs}, worst rel-L2 {worst_rel}")
+    return rows
 
 
 def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
@@ -123,23 +251,26 @@ def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
     return rows
 
 
-_CLASSES = (("block_core (K1/K3)", ("block_core_kernel",)),
+_CLASSES = (("block_core fwd (K1/K3)", ("block_core_kernel",)),
+            ("block_core bwd (K2/K4)", ("bwd_rows_kernel", "bwd_weights_kernel",
+                                        "bwd_reduce_kernel")),
             ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "depthwise", "implicit", "fprop",
-                                     "dgrad", "sm90", "gemm")),
-            ("reduction (IN stats, pools)", ("reduce", "pool")),
+                                     "dgrad", "wgrad", "sm90", "gemm")),
+            ("optimizer (Adam)", ("adam", "multi_tensor", "foreach")),
+            ("reduction (IN stats, pools, losses)", ("reduce", "pool")),
             ("copy / layout", ("copy", "memcpy", "cat", "pad")))
 
 
-def profile_request(torch, fn, x):
-    """Device time of one request by kernel class, from torch.profiler, and
-    the share of the request's wall time the device sat idle."""
+def profile_run(torch, fn, label, **info):
+    """Device time of one call of ``fn`` by kernel class, from
+    torch.profiler, and the share of its wall time the device sat idle."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn(x)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(x)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
@@ -151,11 +282,24 @@ def profile_request(torch, fn, x):
         by_class[cls] = by_class.get(cls, 0.0) + ms
     device_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
-    out = dict(batch=int(x.shape[0]), wall_ms=wall_ms, device_ms=device_ms,
+    out = dict(info, wall_ms=wall_ms, device_ms=device_ms,
                idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
                by_class_ms=by_class, top=[[n[:90], ms, c] for n, ms, c in top])
-    print(json.dumps({"profile": out}))
+    print(json.dumps({f"profile_{label}": out}))
     return out
+
+
+def _counters(bc):
+    return (bc.block_core, bc.block_core2, bc.block_core_bwd, bc.block_core2_bwd)
+
+
+def zero_counts(bc):
+    for f in _counters(bc):
+        f.launches = 0
+
+
+def read_counts(bc):
+    return dict(zip(("K1", "K3", "K2", "K4"), (f.launches for f in _counters(bc))))
 
 
 def serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G, card):
@@ -166,8 +310,7 @@ def serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G, card):
     fn = serve_mod.serving_fn(netG)
     rng = np.random.default_rng(0)
     results = {}
-    bc.block_core.launches = 0
-    bc.block_core2.launches = 0
+    zero_counts(bc)
     forwards = 0
     for batch, steps in ((1, 30), (16, 10)):
         pool = [rng.integers(0, 256, (batch, 256, 256, 3), dtype=np.uint8) for _ in range(4)]
@@ -182,11 +325,12 @@ def serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G, card):
                               latency_ms_p95=float(np.percentile(lat, 95)),
                               img_per_s=batch * steps / (lat.sum() / 1e3), card=card)
         print(json.dumps({"serve": results[batch]}))
-    launches = {"K1": bc.block_core.launches, "K3": bc.block_core2.launches}
-    print(json.dumps({"main_path_forwards": forwards, "launches": launches}))
-    if launches != {"K1": 5 * forwards, "K3": 4 * forwards}:
+    launches = read_counts(bc)
+    print(json.dumps({"serve_path_forwards": forwards, "launches": launches}))
+    if launches != {"K1": 5 * forwards, "K3": 4 * forwards, "K2": 0, "K4": 0}:
         fail(f"launch counts {launches} after {forwards} forwards: want 5 K1 + 4 K3 each")
-    results["profile_b16"] = profile_request(torch, fn, torch.from_numpy(pool[0]).cuda())
+    x16 = torch.from_numpy(pool[0]).cuda()
+    results["profile_b16"] = profile_run(torch, lambda: fn(x16), "serve_b16", batch=16)
 
     # the kernel path against the plain path on the card, same weights and input
     def plain_in(h, x, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
@@ -221,6 +365,251 @@ def serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G, card):
     if not bool((d <= TOL_BF16["atol"] + TOL_BF16["rtol"] * y_p.abs()).all()):
         fail(f"kernel path disagrees with the plain path: {agree}")
     return results, launches, agree
+
+
+def _plain_kernels(bc):
+    """Patches that put the plain versions in the kernels' place (for the
+    comparison only: the port has no such switch)."""
+    from unittest import mock
+
+    def fwd(*args, packed=None):
+        return bc.block_core_reference(*args)
+
+    def fwd2(*args, packed=None):
+        return bc.block_core2_reference(*args)
+
+    def bwd(*args, packed=None):
+        return bc.block_core_bwd_reference(*args)
+
+    def bwd2(*args, packed=None):
+        return bc.block_core2_bwd_reference(*args)
+
+    return [mock.patch.object(bc, n, f) for n, f in (
+        ("block_core", fwd), ("block_core2", fwd2), ("block_core_bwd", bwd),
+        ("block_core2_bwd", bwd2))]
+
+
+def folds(bc, out, hs, stats):
+    """The InstanceNorm cotangent dh of each part from a K2 / K4 output:
+    its dn and its S1, S2 sums (the last 2 * parts outputs)."""
+    n = len(hs)
+    ss = out[len(out) - 2 * n:]
+    return [bc.in_fold(out[i], hs[i], stats[2 * i], stats[2 * i + 1], ss[2 * i], ss[2 * i + 1])
+            for i in range(n)]
+
+
+def faulty(torch, kernel, kind, size):
+    """A K2 / K4 with a fault of a known size in every output: ``gain``
+    scales each by (1 + size), ``noise`` each element by (1 + size * N(0, 1))."""
+    def call(*args, packed=None):
+        out = kernel(*args, packed=packed)
+        if kind == "gain":
+            return tuple((o.float() * (1 + size)).to(o.dtype) for o in out)
+        return tuple((o.float() * (1 + size * torch.randn_like(o, dtype=torch.float32)))
+                     .to(o.dtype) for o in out)
+
+    call.launches = 0
+    return call
+
+
+def gradient_check(torch, bc, pix2pix, cfg, state, real_A, real_B):
+    """From the train state as it stands, with cuDNN held to deterministic
+    algorithms: the G gradient of the step's loss through K1-K4 and through
+    the plain versions.
+
+    Block level: every K2/K4 call of the kernel path is repeated by its
+    plain version on the same inputs and cotangent, and every output (dn,
+    dx, the weight gradients, the S sums) and the folded dh must agree
+    within rel-L2 GRAD_GATE["block"]. Whole generator: each block weight's
+    gradient, kernel path vs plain path, each path with its own bf16
+    forward and backward; the dwconv biases are left out (their gradient is
+    zero in exact arithmetic: the InstanceNorm right after the depthwise
+    conv removes any per-channel constant, so what is left is rounding).
+    The median rel-L2 over the rest must be within GRAD_GATE["median"], and
+    against the same gradient in f32 the kernel path's median rel-L2 may be
+    at most GRAD_GATE["ratio"] times the plain path's. The controls put
+    faults of a known size into K2/K4's outputs and go through the same
+    gate, block level and whole generator, which must refuse those in
+    MUST_FAIL."""
+    from unittest import mock
+
+    G = state.netG
+    with torch.no_grad():
+        A = pix2pix.images(real_A, cfg.compute_dtype)
+        B = pix2pix.images(real_B, cfg.compute_dtype)
+        feats = state.vgg(B)
+    blocks = {k: p for k, p in G.named_parameters()
+              if k.split(".")[0] in {f"c{i}" for i in range(1, 6)} | {f"uc{i}" for i in range(1, 5)}
+              and not k.endswith("dwconv.bias")}
+
+    def grads():
+        G.zero_grad(set_to_none=True)
+        aux = pix2pix.generator_loss(cfg, state, A, B, G(A), feats)
+        aux["loss_G"].backward()
+        state.netD.zero_grad(set_to_none=True)
+        return {k: p.grad.float().clone() for k, p in blocks.items()}
+
+    kernel_bwd, kernel_bwd2 = bc.block_core_bwd, bc.block_core2_bwd
+    k2_names = ["dn", "dx"] + "dW1 db1 dW2 db2 dWs".split() + ["S1", "S2"]
+    k4_names = ["dna", "dnb", "dxa", "dxb"] + "dW1 db1 dW2 db2 dWs".split() + [
+        "S1a", "S2a", "S1b", "S2b"]
+
+    def held(kernel, plain, label, names, nparts, sink):
+        def call(*args, packed=None):
+            out = kernel(*args, packed=packed)
+            ref = plain(*args)
+            hs, stats = args[:nparts], args[2 * nparts:4 * nparts]
+            rels = {n: rel_l2(o, r) for n, o, r in zip(names, out, ref)}
+            for i, (o, r) in enumerate(zip(folds(bc, out, hs, stats), folds(bc, ref, hs, stats))):
+                rels["dh" + "ab"[i] * (nparts == 2)] = rel_l2(o, r)
+            sink.append(dict(kernel=label, shape=list(args[0].shape), rel_l2=rels))
+            return out
+
+        # the wrapped kernel counts its launch on whatever holds its name:
+        # here this stand-in, so the comparison's launches stay off the counts
+        call.launches = 0
+        return call
+
+    def blockwise(k2, k4, sink):
+        """Every K2 / K4 call held against its plain version, into ``sink``."""
+        return (mock.patch.object(bc, "block_core_bwd", held(
+                    k2, bc.block_core_bwd_reference, "K2", k2_names, 1, sink)),
+                mock.patch.object(bc, "block_core2_bwd", held(
+                    k4, bc.block_core2_bwd_reference, "K4", k4_names, 2, sink)))
+
+    per_block, control_blocks = [], {}
+    saved_cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        p2, p4 = blockwise(kernel_bwd, kernel_bwd2, per_block)
+        with p2, p4:
+            got = grads()
+        controls = {}
+        for kind, size in CONTROLS:
+            name = f"{kind} {size}"
+            control_blocks[name] = []
+            torch.cuda.manual_seed(99)
+            p2, p4 = blockwise(faulty(torch, kernel_bwd, kind, size),
+                               faulty(torch, kernel_bwd2, kind, size), control_blocks[name])
+            with p2, p4:
+                controls[name] = grads()
+        patches = _plain_kernels(bc)
+        for p in patches:
+            p.start()
+        try:
+            want = grads()
+            # the same gradient in f32 (TF32 off, the same tanh GELU): what
+            # both bf16 paths approximate
+            nets = [m for m in (G, state.netD, state.vgg)]
+            modes = [m for m in G.modules() if hasattr(m, "gelu_mode")]
+            saved = [m.compute_dtype for m in nets], [m.gelu_mode for m in modes]
+            for m in nets:
+                m.compute_dtype = torch.float32
+            for m in modes:
+                m.gelu_mode = "tanh"
+            A, B = A.float(), B.float()
+            with torch.no_grad():
+                feats = state.vgg(B)
+            try:
+                truth = grads()
+            finally:
+                for m, v in zip(nets, saved[0]):
+                    m.compute_dtype = v
+                for m, v in zip(modes, saved[1]):
+                    m.gelu_mode = v
+        finally:
+            for p in patches:
+                p.stop()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved_cudnn
+
+    def median(vals):
+        vals = sorted(vals)
+        return vals[len(vals) // 2]
+
+    plain_f32 = median(rel_l2(want[k], truth[k]) for k in want)
+
+    def gate(g, blocks):
+        """The readings of one path's gradients, and whether they pass."""
+        vs_plain = {k: rel_l2(g[k], want[k]) for k in want}
+        r = dict(block_worst_rel_l2=max(v for b in blocks for v in b["rel_l2"].values()),
+                 blocks=len(blocks), median_vs_plain=median(vs_plain.values()),
+                 max_vs_plain=max(vs_plain.values()),
+                 median_vs_f32=median(rel_l2(g[k], truth[k]) for k in want),
+                 finite=all(bool(torch.isfinite(v).all()) for v in g.values()))
+        r["ratio_to_plain_vs_f32"] = r["median_vs_f32"] / plain_f32
+        r["passes"] = bool(r["finite"] and r["blocks"] == 9
+                           and r["block_worst_rel_l2"] <= GRAD_GATE["block"]
+                           and r["median_vs_plain"] <= GRAD_GATE["median"]
+                           and r["ratio_to_plain_vs_f32"] <= GRAD_GATE["ratio"])
+        return r, vs_plain
+
+    out, vs_plain = gate(got, per_block)
+    out.update(gate=GRAD_GATE, plain_median_vs_f32=plain_f32,
+               whole_worst=sorted(vs_plain.items(), key=lambda kv: -kv[1])[:8],
+               controls={k: gate(g, control_blocks[k])[0] for k, g in controls.items()},
+               block_level=per_block)
+    print(json.dumps({"train_gradients_kernel_vs_plain": out}))
+    if not out["passes"]:
+        fail(f"the G gradients of the kernel path disagree with the plain path: "
+             f"{ {k: v for k, v in out.items() if k != 'block_level'} }")
+    missed = [k for k in MUST_FAIL if out["controls"][k]["passes"]]
+    if missed:
+        fail(f"the gradient gate passes the faulty controls {missed}")
+    return out
+
+
+def train_phase(torch, np, bc, card):
+    """Drive the pix2pix train step at full width and prove every block ran
+    K1/K3 forward and K2/K4 backward."""
+    from dsgan_tpu_torch import bench
+    from dsgan_tpu_torch.models import pix2pix
+
+    dev = torch.device("cuda")
+    b, size = TRAIN["batch"], TRAIN["size"]
+    state, step, cfg = bench.build(dev, size, True, torch.bfloat16, seed=0)
+    rng = np.random.default_rng(1)
+    batches = [[torch.from_numpy(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)).to(dev)
+                for _ in range(2)] for _ in range(2)]
+    before = {k: p.detach().clone() for k, p in
+              [*state.netG.named_parameters(), *state.netD.named_parameters()][::7]}
+    lr = 2e-4
+
+    torch.cuda.synchronize()
+    zero_counts(bc)
+    metrics = []
+    for i in range(TRAIN["warmup"]):
+        metrics.append(step(state, *batches[i % 2], lr)[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TRAIN["steps"]):
+        metrics.append(step(state, *batches[i % 2], lr)[0])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(bc)
+    steps = TRAIN["warmup"] + TRAIN["steps"]
+
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    finite = all(bool(torch.isfinite(v)) for m in metrics for v in m.values())
+    moved = sum(not torch.equal(before[k], p.detach()) for k, p in
+                [*state.netG.named_parameters(), *state.netD.named_parameters()] if k in before)
+    res = dict(batch=b, size=size, dtype="bfloat16", pool=50, vgg=True, steps_timed=TRAIN["steps"],
+               step_ms=dt / TRAIN["steps"] * 1e3, img_per_s=b * TRAIN["steps"] / dt,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, launches=launches,
+               steps_counted=steps, losses=last, finite=finite, params_moved=moved,
+               params_checked=len(before), pool_count=state.pool.count, card=card)
+    print(json.dumps({"train": res}))
+    want = {"K1": 5 * steps, "K3": 4 * steps, "K2": 5 * steps, "K4": 4 * steps}
+    if launches != want:
+        fail(f"launch counts {launches} after {steps} train steps: want 5 K1 + 4 K3 + 5 K2 + "
+             f"4 K4 each")
+    if not finite or moved != len(before):
+        fail(f"train step: finite losses {finite}, {moved} of {len(before)} parameters moved")
+    res["profile"] = profile_run(torch, lambda: step(state, *batches[0], lr), "train_step",
+                                 batch=b)
+    res["gradients"] = gradient_check(torch, bc, pix2pix, cfg, state, *batches[0])
+    return res, launches
 
 
 def main(argv=None):
@@ -264,19 +653,26 @@ def main(argv=None):
     print(json.dumps({"f32_check": {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
                                     "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}}))
     rows += check_kernels(torch, bc, instance_stats, 1, torch.float32, "erf", TOL_F32, 5)
+    bwd_rows = check_backward(torch, bc, instance_stats, 16, torch.bfloat16, "tanh", 5)
+    bwd_rows += check_backward(torch, bc, instance_stats, 1, torch.float32, "erf", 3)
 
-    serving, launches, agree = serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G,
-                                           card)
+    serving, serve_launches, agree = serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G,
+                                                 card)
+    training, train_launches = train_phase(torch, np, bc, card)
 
     kernels = []
-    for name, src_fn, replaces in (("K1", "block_core_fwd", "dsgan_tpu/pallas/block_core.py:205"),
-                                   ("K3", "block_core2_fwd", "dsgan_tpu/pallas/block_core.py:553")):
-        main = [r for r in rows if r["kernel"] == name and r["batch"] == 16]
-        bf16 = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+    for name, src_fn, line, src, table in (
+            ("K1", "block_core_fwd", 205, "block_core.cu", rows),
+            ("K2", "block_core_bwd", 262, "block_core_bwd.cu", bwd_rows),
+            ("K3", "block_core2_fwd", 553, "block_core.cu", rows),
+            ("K4", "block_core2_bwd", 598, "block_core_bwd.cu", bwd_rows)):
+        main = [r for r in table if r["kernel"] == name and r["batch"] == 16]
+        bf16 = [r for r in table if r["kernel"] == name and r["dtype"] == "bfloat16"]
         by_ops = sum(r["bound_ms"] for r in main if r["bound_by"] == "operations")
         kernels.append(dict(
-            name=f"{name} {src_fn}", route="cuda", source="dsgan_tpu_torch/csrc/block_core.cu",
-            replaces=replaces, launches=launches[name],
+            name=f"{name} {src_fn}", route="cuda", source=f"dsgan_tpu_torch/csrc/{src}",
+            replaces=f"dsgan_tpu/pallas/block_core.py:{line}",
+            launches=serve_launches[name] + train_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in bf16),
             ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
             bound_ms=sum(r["bound_ms"] for r in main),
@@ -285,8 +681,8 @@ def main(argv=None):
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(card=card, kind=kind, rows=rows, serving=serving,
-                           generator_agreement=agree, kernels=kernels,
+            json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
+                           generator_agreement=agree, training=training, kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

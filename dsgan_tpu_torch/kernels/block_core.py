@@ -1,33 +1,43 @@
-"""The ConvNeXt block core after the depthwise conv, forward only:
+"""The ConvNeXt block core after the depthwise conv, with its backward:
 
     out = gelu(IN(h) @ W1 + b1) @ W2 + b2 + x @ Ws
 
 with IN the parameter-free InstanceNorm of h. Port of
-``dsgan_tpu/pallas/block_core.py``: ``block_core`` launches K1
-(``csrc/block_core.cu: block_core_fwd``), ``block_core2`` launches K3
-(``block_core2_fwd``), the two-input form that reads the decoder's
-(upsampled, skip) pair without materializing their concat; each counts
-its launches in ``.launches``. ``block_core_in`` / ``block_core2_in``
-compute the statistics first, as the model calls them.
+``dsgan_tpu/pallas/block_core.py``. The forward wrappers ``block_core``
+(K1, ``csrc/block_core.cu: block_core_fwd``) and ``block_core2`` (K3,
+``block_core2_fwd``, the two-input form that reads the decoder's
+(upsampled, skip) pair without materializing their concat) take the
+InstanceNorm statistics as inputs; the backward wrappers
+``block_core_bwd`` (K2, ``csrc/block_core_bwd.cu``) and ``block_core2_bwd``
+(K4) return the cotangents of the normalized input and of x, the weight
+gradients in f32, and the per-(image, channel) sums S1 = sum(dn),
+S2 = sum(dn * (h - mean)). Each wrapper counts its launches in
+``.launches``. ``block_core_in`` / ``block_core2_in`` are the entries the
+model calls: autograd Functions that compute the statistics, run K1 / K3
+forward and K2 / K4 backward, and fold S1, S2 into the closed-form
+InstanceNorm cotangent (``in_fold``), as ``_in_vjp_bwd`` /
+``_in2_vjp_bwd`` do in the JAX package.
 
-Activations are NCHW tensors. On a CUDA tensor the wrapper launches the
+Activations are NCHW tensors. On a CUDA tensor a wrapper launches its
 kernel, which needs them contiguous in ``torch.channels_last`` order (the
-kernel reads (H*W, C) pixel rows), or raises; it never falls back. On a
-CPU tensor it runs the plain PyTorch version (``block_core_reference``),
-which repeats the kernel's arithmetic. The InstanceNorm statistics are
-plain PyTorch in both cases (``ops.instance_stats``), as they are XLA in
-the JAX package.
+kernels read (H*W, C) pixel rows), or raises; it never falls back. On a
+CPU tensor it runs the plain PyTorch version (``block_core_reference``,
+``block_core_bwd_reference``, ...), which repeats the kernel's
+arithmetic. The InstanceNorm statistics and the fold are plain PyTorch in
+both cases, as they are XLA in the JAX package.
 
 Weights use the JAX orientation: ``w1 (C, 4C)``, ``w2 (4C, P)``,
-``ws (C, P)``. The kernel takes them packed (``pack_weights``): in the
+``ws (C, P)``. The kernels take them packed (``pack_weights``): in the
 activations' dtype, zero-padded to multiples of 16, each input part padded
-on its own. A caller whose weights are frozen packs once and passes
-``packed``.
+on its own. A caller whose weights stay put between calls packs once and
+passes ``packed``.
 
 Numerics (``gelu``): ``"tanh"`` applies the tanh approximation to the
-hidden rounded to the storage dtype, as the TPU kernel does (the bf16
-serving path); ``"erf"`` applies exact GELU to the f32 hidden, as the
-JAX package's XLA block path does in f32. Sums accumulate in f32, and the
+hidden rounded to the storage dtype in the forward, as the TPU kernel
+does (the bf16 path), and its backward recomputes the hidden in f32 with
+one tanh for the value and the derivative; ``"erf"`` applies exact GELU
+to the f32 hidden and differentiates it exactly, as the JAX package's XLA
+block path does in f32. Sums accumulate in f32, and each activation
 output is rounded once.
 """
 
@@ -42,7 +52,10 @@ from dsgan_tpu_torch.ops.norm import instance_stats
 
 # Shared memory a block may use on Hopper (232,448 bytes).
 MAX_SMEM = 227 * 1024
-ROWS_PER_BLOCK = 32  # TM in the CUDA source
+ROWS_PER_BLOCK = 32  # TM of the forward in the CUDA source
+BWD_ROWS = (32, 16)  # row-pass tiles of the backward, the first that fits
+CL = torch.channels_last
+_K0, _K1 = 0.7978845608028654, 0.044715  # sqrt(2 / pi), the tanh GELU's cubic
 
 
 def _ceil16(n):
@@ -112,17 +125,111 @@ def block_core2_reference(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, ge
         torch.cat([ra, rb], 1), w1, b1, w2, b2, ws, gelu)
 
 
+def _rows(t):
+    """(B, C, H, W) -> (B, H*W, C) pixel rows."""
+    return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, t.shape[1])
+
+
+def _unrows(t, like):
+    """(B, H*W, C) pixel rows -> (B, C, H, W) in channels_last memory."""
+    b, _, hh, ww = like.shape
+    return t.reshape(b, hh, ww, t.shape[-1]).permute(0, 3, 1, 2)
+
+
+def _gelu_parts(h1, gelu):
+    """GELU of the f32 hidden and its derivative: one tanh for both in the
+    tanh flavour (``_bwd_kernel``, ``block_core.py:160-168`` of the JAX
+    package), the exact pair in the erf flavour."""
+    if gelu == "tanh":
+        th = torch.tanh(_K0 * (h1 + _K1 * h1 * h1 * h1))
+        dgelu = 0.5 * (1.0 + th) + 0.5 * h1 * (1.0 - th * th) * (_K0 * (1.0 + 3.0 * _K1 * h1 * h1))
+        return 0.5 * h1 * (1.0 + th), dgelu
+    if gelu == "erf":
+        cdf = 0.5 * (1.0 + torch.erf(h1 * 0.7071067811865476))
+        return h1 * cdf, cdf + h1 * 0.3989422804014327 * torch.exp(-0.5 * h1 * h1)
+    raise ValueError(f"unknown gelu flavour [{gelu}]")
+
+
+def block_core_bwd_reference(h, x, mean, rsig, g, w1, b1, w2, ws, gelu="tanh"):
+    """Plain PyTorch version of K2 (``_bwd_kernel`` of the JAX package):
+    given the cotangent ``g`` (B, P, H, W) of ``block_core``'s output, returns
+
+        dn, dx                          (B, C, H, W), h's dtype
+        dW1, db1, dW2, db2, dWs         f32
+        S1 = sum dn, S2 = sum dn * (h - mean)   (B, C) f32 over H, W
+
+    where dn is the cotangent of the normalized input. The hidden is
+    recomputed from h in f32; ``ag`` is the GELU of that f32 hidden
+    rounded to the storage dtype; dg1 is rounded to it before the dW1 and
+    dn products; every sum is in f32."""
+    dt = h.dtype
+    hm = _rows(h).float() - mean[:, None, :]
+    a = (hm * rsig[:, None, :]).to(dt).float()
+    gf = _rows(g).float()
+    h1 = a @ w1.float() + b1.float()
+    act, dgelu = _gelu_parts(h1, gelu)
+    dg1 = (gf @ w2.float().t()) * dgelu
+    dg1_t = dg1.to(dt).float()
+    dn = dg1_t @ w1.float().t()
+
+    def flat(t):
+        return t.reshape(-1, t.shape[-1])
+
+    dw1 = flat(a).t() @ flat(dg1_t)
+    dw2 = flat(act.to(dt).float()).t() @ flat(gf)
+    dws = flat(_rows(x).float()).t() @ flat(gf)
+    dx = (gf @ ws.float().t()).to(dt)
+    return (_unrows(dn.to(dt), h), _unrows(dx, x), dw1, dg1.sum((0, 1)), dw2, gf.sum((0, 1)),
+            dws, dn.sum(1), (dn * hm).sum(1))
+
+
+def block_core2_bwd_reference(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws, gelu="tanh"):
+    """Plain version of K4: the one-input backward on the channel concat
+    of the parts, split back into them. Returns dna, dnb, dxa, dxb, dW1,
+    db1, dW2, db2, dWs (dW1, dWs in the concat layout), S1a, S2a, S1b, S2b."""
+    c1 = ha.shape[1]
+    dn, dx, dw1, db1, dw2, db2, dws, s1, s2 = block_core_bwd_reference(
+        torch.cat([ha, hb], 1), torch.cat([xa, xb], 1), torch.cat([ma, mb], 1),
+        torch.cat([ra, rb], 1), g, w1, b1, w2, ws, gelu)
+    return (dn[:, :c1], dn[:, c1:], dx[:, :c1], dx[:, c1:], dw1, db1, dw2, db2, dws,
+            s1[:, :c1], s2[:, :c1], s1[:, c1:], s2[:, c1:])
+
+
+def in_fold(dn, h, mean, rsig, s1, s2):
+    """The InstanceNorm cotangent of h from the kernel's dn, S1, S2
+    (``_in_fold`` of the JAX package):
+
+        dh = rsig * dn - rsig * S1 / HW - rsig^3 * S2 / HW * (h - mean)
+           = dn * rsig - h * c3 + (mean * c3 - rsig * S1 / HW)
+
+    with per-(image, channel) f32 coefficients and one elementwise pass in
+    h's dtype."""
+    hw = h.shape[2] * h.shape[3]
+    c3 = rsig ** 3 * s2 / hw
+    c0 = mean * c3 - rsig * s1 / hw
+
+    def col(v):
+        return v[:, :, None, None].to(h.dtype)
+
+    return dn * col(rsig) - h * col(c3) + col(c0)
+
+
 @functools.cache
 def _lib():
+    """(forward library, the backward's entry), built together at first use."""
     from dsgan_tpu_torch.kernels import _build
 
+    _build.build(["block_core", "block_core_bwd"])
     lib = _build.load("block_core")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.block_core_fwd.argtypes = [i, i] + [p] * 10 + [ll] + [i] * 7 + [p]
     lib.block_core_fwd.restype = i
     lib.block_core2_fwd.argtypes = [i, i] + [p] * 14 + [ll] + [i] * 9 + [p]
     lib.block_core2_fwd.restype = i
-    return lib
+    bwd = _build.load("block_core_bwd").block_core_bwd
+    bwd.argtypes = [i] * 3 + [p] * 26 + [i] * 11 + [p, ctypes.POINTER(ctypes.c_ulonglong), p]
+    bwd.restype = i
+    return lib, bwd
 
 
 def _hidden_chunk(h4p):
@@ -142,11 +249,24 @@ def smem_bytes(itemsize, cp, hc, pp):
     return s
 
 
-def _forward_only(*tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the block-core kernels are forward only: call under torch.no_grad() "
-            "or torch.inference_mode()")
+def bwd_smem_bytes(itemsize, tm, cp, hc, pp):
+    """Shared memory of one row-pass block of the backward (mirrors
+    ``row_smem_bytes`` in ``csrc/block_core_bwd.cu``): the f32 dn
+    accumulator and the hidden and da chunks, then in the storage dtype
+    the normalized input, the cotangent tile and the rounded dg1 chunk;
+    every row padded by 16 bytes."""
+    pad = 16 // itemsize
+    return 4 * tm * ((cp + 4) + 2 * (hc + 4)) + itemsize * tm * ((cp + pad) + (pp + pad) + (hc + pad))
+
+
+def bwd_rows(itemsize, cp, hc, pp):
+    """Rows of the backward's row-pass tile: the first of ``BWD_ROWS``
+    whose tile fits a block's shared memory; raises if none does."""
+    for tm in BWD_ROWS:
+        if bwd_smem_bytes(itemsize, tm, cp, hc, pp) <= MAX_SMEM:
+            return tm
+    need = bwd_smem_bytes(itemsize, BWD_ROWS[-1], cp, hc, pp)
+    raise ValueError(f"block core backward tile needs {need} B of shared memory (> {MAX_SMEM})")
 
 
 def _check_shapes(parts):
@@ -157,6 +277,16 @@ def _check_shapes(parts):
         for s in (mean, rsig):
             if s.shape != h.shape[:2] or s.dtype != torch.float32 or s.device != h.device:
                 raise ValueError("statistics must be f32 (B, C) tensors on h's device")
+
+
+def _check_packed(packed, ha, hb=None):
+    """``packed`` is laid out for these parts, and the parts agree in batch
+    and spatial size."""
+    c1, c2 = ha.shape[1], (0 if hb is None else hb.shape[1])
+    if packed.c1 != c1 or packed.w1.shape[0] != packed.c1p + _ceil16(c2):
+        raise ValueError(f"packed weights do not match a block of {c1} + {c2} input channels")
+    if hb is not None and (hb.shape[0] != ha.shape[0] or hb.shape[2:] != ha.shape[2:]):
+        raise ValueError("the two parts must share batch and spatial size")
 
 
 def _check_cuda(acts, packed, dtype):
@@ -174,7 +304,6 @@ def _check_cuda(acts, packed, dtype):
 
 def _launch(fn, acts, stats, packed, gelu, shape, c2):
     b, c1, hh, ww = shape
-    lib = _lib()
     dtype = acts[0].dtype
     is_bf16 = int(dtype == torch.bfloat16)
     if gelu not in ("tanh", "erf"):
@@ -203,14 +332,12 @@ def block_core(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
     ``mean``, ``rsig`` (B, C) f32. Returns (B, P, H, W)."""
     if h.device.type == "cpu":
         return block_core_reference(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu)
-    _forward_only(h, x, w1, b1, w2, b2, ws)
     if packed is None:
         packed = pack_weights(w1, b1, w2, b2, ws, h.dtype)
-    if packed.c1 != h.shape[1] or packed.c1p != packed.w1.shape[0]:
-        raise ValueError("packed weights do not match a one-input block of this width")
+    _check_packed(packed, h)
     _check_shapes(((h, x, mean, rsig),))
     _check_cuda((h, x), packed, h.dtype)
-    out = _launch(_lib().block_core_fwd, (h, x), (mean, rsig), packed, gelu, h.shape, 0)
+    out = _launch(_lib()[0].block_core_fwd, (h, x), (mean, rsig), packed, gelu, h.shape, 0)
     block_core.launches += 1
     return out
 
@@ -220,36 +347,174 @@ def block_core2(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, gelu="tanh",
     """K3 with the statistics of each part given."""
     if ha.device.type == "cpu":
         return block_core2_reference(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, gelu)
-    _forward_only(ha, hb, xa, xb, w1, b1, w2, b2, ws)
-    c1, c2 = ha.shape[1], hb.shape[1]
     if packed is None:
-        packed = pack_weights(w1, b1, w2, b2, ws, ha.dtype, c1=c1)
-    if packed.c1 != c1 or packed.w1.shape[0] != packed.c1p + _ceil16(c2):
-        raise ValueError("packed weights do not match a two-input block of these widths")
-    if hb.shape[0] != ha.shape[0] or hb.shape[2:] != ha.shape[2:]:
-        raise ValueError("the two parts must share batch and spatial size")
+        packed = pack_weights(w1, b1, w2, b2, ws, ha.dtype, c1=ha.shape[1])
+    _check_packed(packed, ha, hb)
     _check_shapes(((ha, xa, ma, ra), (hb, xb, mb, rb)))
     _check_cuda((ha, hb, xa, xb), packed, ha.dtype)
-    out = _launch(_lib().block_core2_fwd, (ha, hb, xa, xb), (ma, ra, mb, rb), packed, gelu,
-                  ha.shape, c2)
+    out = _launch(_lib()[0].block_core2_fwd, (ha, hb, xa, xb), (ma, ra, mb, rb), packed, gelu,
+                  ha.shape, hb.shape[1])
     block_core2.launches += 1
+    return out
+
+
+def _launch_bwd(parts, g, packed, gelu):
+    """K2 (one part) or K4 (two parts); ``parts``: [(h, x, mean, rsig), ...].
+    Allocates the outputs and the kernel's workspace (the ag / dg1 scratch
+    and the f32 partial sums), then runs the row pass, the weight pass and
+    the reduce on the current stream."""
+    (ha, xa, ma, ra), (hb, xb, mb, rb) = parts[0], (parts[1] if len(parts) > 1 else (None,) * 4)
+    b, c1, hh, ww = ha.shape
+    c2 = hb.shape[1] if hb is not None else 0
+    dtype, dev = ha.dtype, ha.device
+    if gelu not in ("tanh", "erf"):
+        raise ValueError(f"unknown gelu flavour [{gelu}]")
+    if g.shape != (b, packed.p, hh, ww):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match the output {(b, packed.p, hh, ww)}")
+    _check_shapes(parts)
+    _check_cuda([t for pt in parts for t in pt[:2]] + [g], packed, dtype)
+    cp, h4p = packed.w1.shape
+    pp = packed.w2.shape[1]
+    hc = _hidden_chunk(h4p)
+    tm = bwd_rows(ha.element_size(), cp, hc, pp)
+
+    def act(c):
+        return torch.empty((b, c, hh, ww), dtype=dtype, device=dev, memory_format=CL)
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    h4, p, c = packed.h4, packed.p, c1 + c2
+    dna, dxa = act(c1), act(c1)
+    dnb, dxb = (act(c2), act(c2)) if c2 else (None, None)
+    dw1, db1, dw2, db2, dws = f32(c, h4), f32(h4), f32(h4, p), f32(p), f32(c, p)
+    s1a, s2a = f32(b, c1), f32(b, c1)
+    s1b, s2b = (f32(b, c2), f32(b, c2)) if c2 else (None, None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stats = [None if t is None else t.contiguous() for t in (ma, ra, mb, rb)]
+    tensors = (ha, hb, xa, xb, g, *stats, packed.w1, packed.b1, packed.w2, packed.ws,
+               dna, dnb, dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b)
+    head = [int(dtype == torch.bfloat16), int(gelu == "tanh"), tm] + [ptr(t) for t in tensors]
+    dims = [b, hh * ww, c1, c2, packed.c1p, cp, h4, h4p, hc, p, pp]
+    fn = _lib()[1]
+    size = ctypes.c_ulonglong(0)
+    fn(*head, *dims, None, ctypes.byref(size), None)
+    work = torch.empty((size.value,), dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = fn(*head, *dims, work.data_ptr(), ctypes.byref(size), stream)
+    if err:
+        raise RuntimeError(f"block core backward launch failed: CUDA error {err}")
+    if c2:
+        return dna, dnb, dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b
+    return dna, dxa, dw1, db1, dw2, db2, dws, s1a, s2a
+
+
+def _bwd_pack(w1, b1, w2, ws, dtype, c1=None):
+    """The packed weights the backward reads (it never reads b2)."""
+    return pack_weights(w1, b1, w2, w2.new_zeros(w2.shape[1]), ws, dtype, c1=c1)
+
+
+def block_core_bwd(h, x, mean, rsig, g, w1, b1, w2, ws, gelu="tanh", packed=None):
+    """K2: the backward of ``block_core`` at the cotangent ``g`` (B, P, H, W).
+    Returns what ``block_core_bwd_reference`` returns."""
+    if h.device.type == "cpu":
+        return block_core_bwd_reference(h, x, mean, rsig, g, w1, b1, w2, ws, gelu)
+    if packed is None:
+        packed = _bwd_pack(w1, b1, w2, ws, h.dtype)
+    _check_packed(packed, h)
+    out = _launch_bwd([(h, x, mean, rsig)], g, packed, gelu)
+    block_core_bwd.launches += 1
+    return out
+
+
+def block_core2_bwd(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws, gelu="tanh",
+                    packed=None):
+    """K4: the backward of ``block_core2``. Returns what
+    ``block_core2_bwd_reference`` returns."""
+    if ha.device.type == "cpu":
+        return block_core2_bwd_reference(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws, gelu)
+    if packed is None:
+        packed = _bwd_pack(w1, b1, w2, ws, ha.dtype, c1=ha.shape[1])
+    _check_packed(packed, ha, hb)
+    out = _launch_bwd([(ha, xa, ma, ra), (hb, xb, mb, rb)], g, packed, gelu)
+    block_core2_bwd.launches += 1
     return out
 
 
 # Launches of each kernel since the last reset (a caller sets them to 0).
 block_core.launches = 0
 block_core2.launches = 0
+block_core_bwd.launches = 0
+block_core2_bwd.launches = 0
+
+
+def _cotangent(g, like):
+    """The output cotangent as the backward kernels read it: the forward's
+    dtype, channels_last (a CPU tensor passes as it is)."""
+    if g.device.type == "cpu":
+        return g.to(like.dtype)
+    return g.to(like.dtype).contiguous(memory_format=CL)
+
+
+class _BlockCoreIn(torch.autograd.Function):
+    """``block_core_in`` with its backward: K1 forward, K2 backward, then
+    the InstanceNorm fold (``_in_vjp_fwd`` / ``_in_vjp_bwd`` of the JAX
+    package). The weights come unpacked and cast, so that autograd carries
+    their gradients to the parameters; ``packed`` is their kernel layout."""
+
+    @staticmethod
+    def forward(ctx, h, x, w1, b1, w2, b2, ws, gelu, packed):
+        mean, rsig = instance_stats(h)
+        out = block_core(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu, packed=packed)
+        ctx.save_for_backward(h, x, mean, rsig, w1, b1, w2, ws)
+        ctx.gelu, ctx.packed, ctx.b2_dtype = gelu, packed, b2.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h, x, mean, rsig, w1, b1, w2, ws = ctx.saved_tensors
+        dn, dx, dw1, db1, dw2, db2, dws, s1, s2 = block_core_bwd(
+            h, x, mean, rsig, _cotangent(g, h), w1, b1, w2, ws, ctx.gelu, packed=ctx.packed)
+        return (in_fold(dn, h, mean, rsig, s1, s2), dx, dw1.to(w1.dtype), db1.to(b1.dtype),
+                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), dws.to(ws.dtype), None, None)
+
+
+class _BlockCore2In(torch.autograd.Function):
+    """``block_core2_in`` with its backward: K3 forward, K4 backward, each
+    part folded on its own (``_in2_vjp_fwd`` / ``_in2_vjp_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, ha, hb, xa, xb, w1, b1, w2, b2, ws, gelu, packed):
+        ma, ra = instance_stats(ha)
+        mb, rb = instance_stats(hb)
+        out = block_core2(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, gelu,
+                          packed=packed)
+        ctx.save_for_backward(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, ws)
+        ctx.gelu, ctx.packed, ctx.b2_dtype = gelu, packed, b2.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, ws = ctx.saved_tensors
+        (dna, dnb, dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b) = block_core2_bwd(
+            ha, hb, xa, xb, ma, ra, mb, rb, _cotangent(g, ha), w1, b1, w2, ws, ctx.gelu,
+            packed=ctx.packed)
+        return (in_fold(dna, ha, ma, ra, s1a, s2a), in_fold(dnb, hb, mb, rb, s1b, s2b), dxa, dxb,
+                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
+                dws.to(ws.dtype), None, None)
 
 
 def block_core_in(h, x, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
-    """InstanceNorm(h) -> MLP -> + x @ Ws (K1). ``h``, ``x``: (B, C, H, W)."""
-    mean, rsig = instance_stats(h)
-    return block_core(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu, packed)
+    """InstanceNorm(h) -> MLP -> + x @ Ws, differentiable: K1 forward, K2
+    backward. ``h``, ``x``: (B, C, H, W)."""
+    return _BlockCoreIn.apply(h, x, w1, b1, w2, b2, ws, gelu, packed)
 
 
 def block_core2_in(ha, hb, xa, xb, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
-    """The two-input block core (K3) on the parts a = (ha, xa), b = (hb, xb),
-    equal to ``block_core_in`` on their channel concat."""
-    ma, ra = instance_stats(ha)
-    mb, rb = instance_stats(hb)
-    return block_core2(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, gelu, packed)
+    """The two-input block core on the parts a = (ha, xa), b = (hb, xb),
+    equal to ``block_core_in`` on their channel concat: K3 forward, K4
+    backward."""
+    return _BlockCore2In.apply(ha, hb, xa, xb, w1, b1, w2, b2, ws, gelu, packed)

@@ -23,3 +23,8 @@ def gelu(x, mode="auto"):
 def PReLU():
     """torch ``nn.PReLU()``: one learnable slope shared by all channels, 0.25."""
     return nn.PReLU(num_parameters=1, init=0.25)
+
+
+def prelu(x, module):
+    """``module`` (an ``nn.PReLU``) applied with its slope cast to x's dtype."""
+    return F.prelu(x, module.weight.to(x.dtype))

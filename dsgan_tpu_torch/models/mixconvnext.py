@@ -1,4 +1,4 @@
-"""MixConvNeXtML, the DS-GAN dual-stream generator, forward only.
+"""MixConvNeXtML, the DS-GAN dual-stream generator.
 
 Port of ``dsgan_tpu/models/mixconvnext.py`` (reference
 DSGAN/models/model/MixConvNeXtML.py). Tensors are NCHW in
@@ -19,9 +19,17 @@ Streams:
     the reference has no final tanh.
 
 Every ConvNeXt block's core after its depthwise conv runs
-``kernels.block_core``: K1 at c1-c5, K3 (the two-input form, reading the
-decoder's (upsampled, skip) pair unconcatenated) at uc1-uc4. On a CPU
-tensor the same calls run their plain PyTorch versions.
+``kernels.block_core``: K1 forward and K2 backward at c1-c5, K3 forward
+and K4 backward (the two-input form, reading the decoder's (upsampled,
+skip) pair unconcatenated) at uc1-uc4. On a CPU tensor the same calls run
+their plain PyTorch versions.
+
+Precision follows the JAX package (``models/layers.py``): every layer
+computes in its input's dtype and casts its weights to it at use, so a
+training build keeps f32 parameters (Adam updates them in f32) and
+computes in bf16, while a serving build that stores bf16 parameters
+casts nothing. ``compute_dtype`` (default: the parameters' dtype) is the
+dtype the input is cast to.
 """
 
 import torch
@@ -30,9 +38,14 @@ from torch import nn
 
 from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.kernels.block_core import block_core2_in, block_core_in, pack_weights
-from dsgan_tpu_torch.models.layers import PReLU, gelu, gelu_is_tanh
+from dsgan_tpu_torch.models.layers import PReLU, gelu, gelu_is_tanh, prelu
 
 CL = torch.channels_last
+
+
+def _w(t, x):
+    """A weight cast to the dtype ``x`` computes in (no copy if it is already)."""
+    return None if t is None else t.to(x.dtype)
 
 
 class ChannelAttention(nn.Module):
@@ -46,7 +59,8 @@ class ChannelAttention(nn.Module):
 
     def forward(self, x):
         def mlp(v):
-            return ops.conv2d(self.relu1(ops.conv2d(v, self.fc1.weight)), self.fc2.weight)
+            return ops.conv2d(prelu(ops.conv2d(v, _w(self.fc1.weight, v)), self.relu1),
+                              _w(self.fc2.weight, v))
 
         return torch.sigmoid(mlp(ops.adaptive_avg_pool(x)) + mlp(ops.adaptive_max_pool(x)))
 
@@ -69,18 +83,23 @@ class ConvNeXtBlock(nn.Module):
         self._pack_key = None
         self._pack = None
 
-    def _weights(self):
-        return (self.pwconv1.weight.t(), self.pwconv1.bias, self.pwconv2.weight.t(),
-                self.pwconv2.bias, self.shortcut.weight[:, :, 0, 0].t())
+    def _weights(self, dtype):
+        """(w1, b1, w2, b2, ws) in the JAX orientation, cast to ``dtype``:
+        differentiable, so the kernels' weight gradients reach the
+        parameters."""
+        return tuple(t.to(dtype) for t in (
+            self.pwconv1.weight.t(), self.pwconv1.bias, self.pwconv2.weight.t(),
+            self.pwconv2.bias, self.shortcut.weight[:, :, 0, 0].t()))
 
     def _packed(self, dtype, c1):
-        """Kernel-layout weights, packed once while the parameters stay put."""
+        """Kernel-layout weights, packed outside autograd and kept while the
+        parameters stay put (an optimizer step bumps their version)."""
         params = (self.pwconv1.weight, self.pwconv1.bias, self.pwconv2.weight,
                   self.pwconv2.bias, self.shortcut.weight)
         key = (dtype, c1) + tuple((p.data_ptr(), p._version) for p in params)
         if key != self._pack_key:
             with torch.no_grad():
-                self._pack = pack_weights(*self._weights(), dtype, c1=c1)
+                self._pack = pack_weights(*self._weights(dtype), dtype, c1=c1)
             self._pack_key = key
         return self._pack
 
@@ -88,16 +107,17 @@ class ConvNeXtBlock(nn.Module):
         x = x.contiguous(memory_format=CL)
         c1 = x.shape[1]
         gelu_flavour = "tanh" if gelu_is_tanh(self.gelu_mode, x.dtype) else "erf"
-        wd, bd = self.dwconv.weight, self.dwconv.bias
+        wd, bd = _w(self.dwconv.weight, x), _w(self.dwconv.bias, x)
+        weights = self._weights(x.dtype)
         packed = self._packed(x.dtype, c1) if x.is_cuda else None
         if x2 is None:
             h = ops.conv2d(x, wd, bd, padding=3, groups=c1).contiguous(memory_format=CL)
-            return block_core_in(h, x, *self._weights(), gelu=gelu_flavour, packed=packed)
+            return block_core_in(h, x, *weights, gelu=gelu_flavour, packed=packed)
         x2 = x2.contiguous(memory_format=CL)
         c2 = x2.shape[1]
         h = ops.conv2d(x, wd[:c1], bd[:c1], padding=3, groups=c1).contiguous(memory_format=CL)
         h2 = ops.conv2d(x2, wd[c1:], bd[c1:], padding=3, groups=c2).contiguous(memory_format=CL)
-        return block_core2_in(h, h2, x, x2, *self._weights(), gelu=gelu_flavour, packed=packed)
+        return block_core2_in(h, h2, x, x2, *weights, gelu=gelu_flavour, packed=packed)
 
 
 class UpBlock(nn.Module):
@@ -113,7 +133,7 @@ class UpBlock(nn.Module):
 
     def forward(self, x, skip):
         deconv = self.model[0]
-        h = ops.conv_transpose2d(x, deconv.weight, deconv.bias)
+        h = ops.conv_transpose2d(x, _w(deconv.weight, x), _w(deconv.bias, x))
         h = gelu(ops.instance_norm(h), self.gelu_mode)
         if self.split:
             return h, skip
@@ -131,7 +151,8 @@ class DownProject(nn.Sequential):
         self.gelu_mode = gelu_mode
 
     def forward(self, pooled):
-        return gelu(ops.instance_norm(ops.conv2d(pooled, self[1].weight)), self.gelu_mode)
+        return gelu(ops.instance_norm(ops.conv2d(pooled, _w(self[1].weight, pooled))),
+                    self.gelu_mode)
 
 
 def _pool_pyramid(x, max_scale):
@@ -167,8 +188,8 @@ class MidMLKA(nn.Module):
         bank = (self.X3, self.X5, self.X7, self.X9)
         wk = torch.cat([F.pad(m.weight, [(9 - m.kernel_size[0]) // 2] * 4) for m in bank])
         bk = torch.cat([m.bias for m in bank])
-        out = ops.conv2d(x, wk, bk, padding=4, groups=x.shape[1])
-        out = ops.conv2d(out, self.conv.weight, self.conv.bias)
+        out = ops.conv2d(x, _w(wk, x), _w(bk, x), padding=4, groups=x.shape[1])
+        out = ops.conv2d(out, _w(self.conv.weight, x), _w(self.conv.bias, x))
         gate = self.attn(out)
         return gelu(ops.instance_norm(out * gate) + x, self.gelu_mode)
 
@@ -199,22 +220,22 @@ class OriginMLKA(nn.Module):
 
     def forward(self, x):
         pool = ops.max_pool2d
-        d1 = ops.conv2d(x, self.to32.weight)
+        d1 = ops.conv2d(x, _w(self.to32.weight, x))
         d2 = self.mid32(pool(d1, 2))
-        d3 = ops.conv2d(d2, self.to64.weight)
+        d3 = ops.conv2d(d2, _w(self.to64.weight, x))
         d4 = self.mid64(pool(d3, 2))
-        d5 = ops.conv2d(d4, self.to128.weight)
+        d5 = ops.conv2d(d4, _w(self.to128.weight, x))
         d6 = self.mid128(pool(d5, 2))
-        d7 = ops.conv2d(d6, self.to256.weight)
+        d7 = ops.conv2d(d6, _w(self.to256.weight, x))
         d8 = self.mid256(pool(d7, 2))
 
-        u1 = ops.conv2d(self.up1(d8, d6), self.upc1[0].weight)
+        u1 = ops.conv2d(self.up1(d8, d6), _w(self.upc1[0].weight, x))
         u1 = self.upc1[1](u1)
         u2 = self.upc2(self.up2(u1, d4))
         u3 = self.upc3(self.up3(u2, d3))
         up4 = self.up4[0]
-        u4 = ops.instance_norm(ops.conv_transpose2d(u3, up4.weight, up4.bias))
-        sc = ops.instance_norm(ops.conv2d(x, self.shortcut[0].weight))
+        u4 = ops.instance_norm(ops.conv_transpose2d(u3, _w(up4.weight, x), _w(up4.bias, x)))
+        sc = ops.instance_norm(ops.conv2d(x, _w(self.shortcut[0].weight, x)))
         return gelu(u4 + sc, self.gelu_mode)
 
 
@@ -231,12 +252,13 @@ class MixConvNeXtML(nn.Module):
     """The full dual-stream generator (reference MixConvNeXtML.py:428-494).
 
     ``forward``: (B, 3, H, W) in [-1, 1], H and W divisible by 16 -> (B, 3,
-    H, W), unbounded, in the input's dtype; computes in the parameters'
-    dtype."""
+    H, W), unbounded, in the input's dtype; computes in ``compute_dtype``
+    (None: the parameters' dtype)."""
 
-    def __init__(self, gelu_mode="auto"):
+    def __init__(self, gelu_mode="auto", compute_dtype=None):
         super().__init__()
         g = gelu_mode
+        self.compute_dtype = compute_dtype
         widths = (3, 64, 128, 256, 512, 1024)
         for i in range(1, 6):
             self.add_module(f"c{i}", ConvNeXtBlock(widths[i - 1], widths[i], g))
@@ -259,7 +281,7 @@ class MixConvNeXtML(nn.Module):
 
     def forward(self, x):
         in_dtype = x.dtype
-        x = x.to(self.res.weight.dtype).contiguous(memory_format=CL)
+        x = x.to(self.compute_dtype or self.res.weight.dtype).contiguous(memory_format=CL)
 
         r1 = self.c1(x)
         d64, p1 = self._skips("down64", r1)
@@ -277,5 +299,5 @@ class MixConvNeXtML(nn.Module):
         o4 = self.uc4(*self.u4(o3 + d64[0], r1))
 
         loc = self.local(x)
-        out = ops.conv2d(o4 + loc, self.res.weight, self.res.bias, padding=1)
+        out = ops.conv2d(o4 + loc, _w(self.res.weight, x), _w(self.res.bias, x), padding=1)
         return out.to(in_dtype)

@@ -1,5 +1,5 @@
 """Plain tensor ops of the port (the JAX package's ``dsgan_tpu.ops`` subset
-that the serving path runs)."""
+that the serving path and the pix2pix train step run)."""
 
 from dsgan_tpu_torch.ops.conv import (
     adaptive_avg_pool,
@@ -8,11 +8,14 @@ from dsgan_tpu_torch.ops.conv import (
     conv_transpose2d,
     max_pool2d,
 )
-from dsgan_tpu_torch.ops.metrics import normalize_u8, quantize_uint8
+from dsgan_tpu_torch.ops.losses import gan_loss, l1_loss, perceptual_loss, ssim_loss, tv_loss
+from dsgan_tpu_torch.ops.metrics import normalize_u8, psnr_uint8, quantize_uint8, ssim_uint8
 from dsgan_tpu_torch.ops.norm import instance_norm, instance_stats
+from dsgan_tpu_torch.ops.ssim import ssim
 
 __all__ = [
-    "adaptive_avg_pool", "adaptive_max_pool", "conv2d", "conv_transpose2d",
-    "instance_norm", "instance_stats", "max_pool2d", "normalize_u8",
-    "quantize_uint8",
+    "adaptive_avg_pool", "adaptive_max_pool", "conv2d", "conv_transpose2d", "gan_loss",
+    "instance_norm", "instance_stats", "l1_loss", "max_pool2d", "normalize_u8",
+    "perceptual_loss", "psnr_uint8", "quantize_uint8", "ssim", "ssim_loss", "ssim_uint8",
+    "tv_loss",
 ]

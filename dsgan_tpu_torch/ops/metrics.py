@@ -1,6 +1,18 @@
-"""The uint8 pixel contract at the serving boundary."""
+"""The uint8 pixel contract and the evaluation-protocol metrics (port of
+``dsgan_tpu/ops/metrics.py``).
 
+The reference's quality protocol (DSGAN/train.py:33-44,110-120): map
+outputs from [-1, 1] to [0, 255], clip, truncate to uint8, then PSNR and
+skimage's ``structural_similarity`` (7x7 uniform window, sample
+covariance). ``psnr_uint8`` / ``ssim_uint8`` compute them in f32 on the
+device, so a train step needs no host sync for them. The uniform-filter
+SSIM with its edges cropped equals a VALID-window mean.
+"""
+
+import numpy as np
 import torch
+
+from dsgan_tpu_torch.ops.ssim import separable_filter_valid
 
 
 def normalize_u8(x):
@@ -16,3 +28,30 @@ def quantize_uint8(x):
     (``np.clip(((x + 1) / 2) * 255, 0, 255).astype(np.uint8)``)."""
     v = torch.clamp((x.float() + 1.0) / 2.0 * 255.0, 0.0, 255.0)
     return torch.floor(v)
+
+
+def psnr_uint8(label, result, data_range=255.0):
+    """PSNR between quantized [0, 255] tensors, f32."""
+    mse = (label.float() - result.float()).square().mean().clamp(min=1e-12)
+    return 10.0 * torch.log10(data_range ** 2 / mse)
+
+
+def ssim_uint8(label, result, data_range=255.0, win_size=7, k1=0.01, k2=0.03):
+    """skimage-protocol SSIM of quantized [0, 255] NCHW tensors: uniform
+    window, sample covariance (NP / (NP - 1)), the mean over channels and
+    positions."""
+    x, y = label.float(), result.float()
+    n = win_size * win_size
+    cov_norm = n / (n - 1.0)
+    c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
+    win = np.full((win_size,), 1.0 / win_size, np.float32)
+
+    def mean(v):
+        return separable_filter_valid(v, win)
+
+    ux, uy = mean(x), mean(y)
+    vx = cov_norm * (mean(x * x) - ux * ux)
+    vy = cov_norm * (mean(y * y) - uy * uy)
+    vxy = cov_norm * (mean(x * y) - ux * uy)
+    s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux * ux + uy * uy + c1) * (vx + vy + c2))
+    return s.mean()

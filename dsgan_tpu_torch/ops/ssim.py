@@ -1,0 +1,67 @@
+"""Single-scale SSIM on NCHW images (port of ``dsgan_tpu/ops/ssim.py::
+ssim``, reference DSGAN/MS_SSIM.py:95-150): a separable 1-D window
+applied with VALID padding along each spatial dim, per-channel
+statistics, the SSIM map averaged over space per channel.
+
+The JAX package filters with banded matmuls (a TPU layout choice); here
+the filter is a grouped convolution with the same taps, which gives the
+same sums. MS-SSIM and the 5-D (video) form are not ported yet.
+"""
+
+import warnings
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def gauss_window(size=11, sigma=1.5):
+    """The normalized 1-D Gaussian window (MS_SSIM.py:9-23), f32 numpy."""
+    coords = np.arange(size, dtype=np.float32) - size // 2
+    g = np.exp(-(coords ** 2) / (2 * sigma ** 2))
+    return g / g.sum()
+
+
+def separable_filter_valid(x, win):
+    """The 1-D window ``win`` (numpy) along H, then W, per channel, VALID.
+    A dim shorter than the window is skipped with a warning, as the
+    reference's gaussian_filter does (MS_SSIM.py:44-50)."""
+    size, c = len(win), x.shape[1]
+    w = torch.as_tensor(win, dtype=x.dtype, device=x.device)
+    out = x
+    for axis, shape in ((2, (c, 1, size, 1)), (3, (c, 1, 1, size))):
+        if x.shape[axis] >= size:
+            out = F.conv2d(out, w.reshape(1, 1, *shape[2:]).expand(shape), groups=c)
+        else:
+            warnings.warn(f"Skipping Gaussian Smoothing at spatial dim {axis - 2} for input: "
+                          f"{tuple(x.shape)} and win size: {size}")
+    return out
+
+
+def _ssim_per_channel(x, y, data_range, win, k=(0.01, 0.03)):
+    """(N, C) means of the SSIM map (MS_SSIM.py:55-92)."""
+    c1, c2 = (k[0] * data_range) ** 2, (k[1] * data_range) ** 2
+    mu1, mu2 = separable_filter_valid(x, win), separable_filter_valid(y, win)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = separable_filter_valid(x * x, win) - mu1_sq
+    sigma2_sq = separable_filter_valid(y * y, win) - mu2_sq
+    sigma12 = separable_filter_valid(x * y, win) - mu1_mu2
+    cs_map = (2 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
+    ssim_map = ((2 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs_map
+    return ssim_map.mean(dim=(2, 3))
+
+
+def ssim(x, y, data_range=255, size_average=True, win_size=11, win_sigma=1.5, k=(0.01, 0.03),
+         nonnegative_ssim=False):
+    """SSIM of two (N, C, H, W) batches: a scalar with ``size_average``,
+    else one value per image."""
+    if x.shape != y.shape:
+        raise ValueError(f"Input images should have the same dimensions, got {x.shape} vs {y.shape}.")
+    if x.dim() != 4:
+        raise ValueError(f"Input images should be 4-d tensors, but got {tuple(x.shape)}")
+    if win_size % 2 != 1:
+        raise ValueError("Window size should be odd.")
+    per_channel = _ssim_per_channel(x, y, data_range, gauss_window(win_size, win_sigma), k)
+    if nonnegative_ssim:
+        per_channel = torch.relu(per_channel)
+    return per_channel.mean() if size_average else per_channel.mean(dim=1)

@@ -1,11 +1,15 @@
-"""Weight carry-over between the JAX package's parameter tree and the port's
-``state_dict``.
+"""Weight carry-over between the JAX package's parameter trees and the
+port's ``state_dict``s.
 
 The port's module names are the reference torch ``state_dict`` keys, so
-the JAX package's converter (``utils/pth_convert.py::convert_mixconvnext``)
-reads a port ``state_dict`` as it reads a reference checkpoint, and
-``state_dict_from_jax`` here is its exact inverse. Layout rules (the JAX
-package's, kept here as a copy):
+the JAX package's converters read a port ``state_dict`` as they read a
+reference checkpoint, and the functions here are their exact inverses:
+
+  generator      ``state_dict_from_jax``      <- ``pth_convert.convert_mixconvnext``
+  PatchGAN D     ``d_state_dict_from_jax``    <- ``pth_convert.convert_nlayer_discriminator``
+  VGG16 features ``vgg_state_dict_from_jax``  <- ``vgg.load_torchvision_npz`` (``features.N``)
+
+Layout rules (the JAX package's, kept here as a copy):
 
   conv   OIHW  [O, I/g, kh, kw] <-> HWIO [kh, kw, I/g, O]
   convT  IOHW  [I, O, kh, kw]   <-> HWIO [kh, kw, I, O]   (no spatial flip)
@@ -78,10 +82,29 @@ def _mixconvnext_entries():
     return out
 
 
-def _leaf_map():
+def nlayer_entries(n_layers=3):
+    """The PatchGAN's convs: ``model.0, 2, 5, 8, ..`` (each conv after the
+    first is followed by a parameter-free InstanceNorm and a LeakyReLU) as
+    ``conv0 .. conv{n_layers}, conv_out`` (``convert_nlayer_discriminator``)."""
+    idx = [0] + [2 + 3 * i for i in range(n_layers + 1)]
+    names = [f"conv{i}" for i in range(n_layers + 1)] + ["conv_out"]
+    return [(f"model.{i}", n, ("conv", "bias")) for i, n in zip(idx, names)]
+
+
+# torchvision vgg16.features index of each conv (dsgan_tpu/models/vgg.py VGG16_CONVS)
+VGG16_FEATURE_INDEX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+
+
+def vgg_entries(num_convs=len(VGG16_FEATURE_INDEX)):
+    """``features.N`` as ``convI`` (``load_torchvision_npz``)."""
+    return [(f"features.{n}", f"conv{i}", ("conv", "bias"))
+            for i, n in enumerate(VGG16_FEATURE_INDEX[:num_convs])]
+
+
+def _leaf_map(entries=None):
     """[(torch key, JAX slash path, torch->JAX, JAX->torch)] for every leaf."""
     table = []
-    for tk, jp, kinds in _mixconvnext_entries():
+    for tk, jp, kinds in entries if entries is not None else _mixconvnext_entries():
         for kind in kinds:
             jleaf, tsuffix, fwd, inv = _LEAVES[kind]
             table.append((f"{tk}.{tsuffix}", f"{jp}/{jleaf}", fwd, inv))
@@ -118,17 +141,32 @@ def load_params_npz(path):
         return unflatten({k: data[k] for k in data.files})
 
 
-def jax_shapes(state_dict_shapes):
+def jax_shapes(state_dict_shapes, entries=None):
     """{torch key: shape} -> {JAX path: shape} under the layout rules."""
     return {jp: fwd(np.broadcast_to(np.float32(0), state_dict_shapes[tk])).shape
-            for tk, jp, fwd, _ in _leaf_map()}
+            for tk, jp, fwd, _ in _leaf_map(entries)}
 
 
-def state_dict_from_jax(params):
+def state_dict_from_jax(params, entries=None):
     """JAX-layout params (nested dict of ndarrays) -> the port's ``state_dict``
-    (torch tensors, f32). Inverse of ``convert_mixconvnext``."""
+    (torch tensors, f32). Inverse of ``convert_mixconvnext`` (default), or
+    of the converter whose ``entries`` are given."""
     flat = flatten(params)
     sd = {}
-    for tk, jp, _, inv in _leaf_map():
+    for tk, jp, _, inv in _leaf_map(entries):
         sd[tk] = torch.from_numpy(np.ascontiguousarray(inv(np.asarray(flat[jp], np.float32))))
     return sd
+
+
+def d_state_dict_from_jax(params, n_layers=3):
+    """The PatchGAN's JAX params -> its ``state_dict``; inverse of
+    ``convert_nlayer_discriminator``."""
+    return state_dict_from_jax(params, nlayer_entries(n_layers))
+
+
+def vgg_state_dict_from_jax(params, num_convs=None):
+    """``Vgg16Features`` JAX params (``{"conv0": ...}``, as
+    ``load_torchvision_npz(path)["params"]``) -> the ``features.N``
+    ``state_dict`` that ``load_torchvision_npz`` reads back from an npz;
+    the first ``num_convs`` convs (default: all that ``params`` holds)."""
+    return state_dict_from_jax(params, vgg_entries(num_convs or len(params)))

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: K1 and K3 (``csrc/block_core.cu``)
-against their plain PyTorch versions at shapes the generator never gives
-them (ragged row tiles, widths that are not multiples of 16, unequal
-parts), the wrappers' refusals, the launch counters, and the generator's
-kernel path against its plain path. Each test needs a CUDA card and skips
-without one. On the card (no JAX needed, hence ``--noconftest``):
+and K2 and K4 (``csrc/block_core_bwd.cu``) against their plain PyTorch
+versions at shapes the generator never gives them (ragged row tiles,
+widths that are not multiples of 16, unequal parts), the wrappers'
+refusals, the launch counters, and the generator's kernel path against
+its plain path, forward and backward. Each test needs a CUDA card and
+skips without one. On the card (no JAX needed, hence ``--noconftest``):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -112,9 +113,17 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
             bc.block_core_in(h.half(), x.half(), *[w.half() for w in ws])
         with pytest.raises(ValueError, match="dtype"):
             bc.block_core_in(h, x.float(), *ws)
-    w1 = ws[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward only"):
-        bc.block_core_in(h, x, w1, *ws[1:])
+    g = _act(rng, 1, 16, 8, 8, dtype)
+    stats = instance_stats(h)
+    with pytest.raises(ValueError, match="channels_last"):
+        bc.block_core_bwd(h, x, *stats, g.contiguous(), ws[0], ws[1], ws[2], ws[4])
+    with pytest.raises(ValueError, match="cotangent"):
+        bc.block_core_bwd(h, x, *stats, g[:, :8], ws[0], ws[1], ws[2], ws[4])
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = _weights(rng, 2048, 2048, dtype)
+        hw_, xw = _act(rng, 1, 2048, 2, 2, dtype), _act(rng, 1, 2048, 2, 2, dtype)
+        bc.block_core_bwd(hw_, xw, *instance_stats(hw_), _act(rng, 1, 2048, 2, 2, dtype),
+                          wide[0], wide[1], wide[2], wide[4])
 
 
 def test_generator_kernel_path_matches_plain_path(cuda):
@@ -142,3 +151,232 @@ def test_generator_kernel_path_matches_plain_path(cuda):
     assert (bc.block_core.launches, bc.block_core2.launches) == (5, 4)
     assert got.shape == (2, 3, 64, 64) and got.dtype == torch.float32
     torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+
+
+# bf16: the tolerances of chip_smoke.py (elementwise 2e-2 for activations,
+# rel-L2 1e-2 for the sums over rows); f32: sums in another order only
+BWD_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-3, 1e-4)}
+
+
+def _assert_bwd_close(got, want, dtype, names):
+    torch.cuda.synchronize()
+    elem, rel = BWD_TOL[dtype]
+    for name, g, w in zip(names, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        g, w = g.float(), w.float()
+        if name.startswith(("dn", "dx")):
+            torch.testing.assert_close(g, w, rtol=elem, atol=elem * max(1.0, float(w.abs().max())),
+                                       msg=name)
+        else:
+            err = float((g - w).norm() / w.norm().clamp(min=1e-30))
+            assert err <= rel, (name, err)
+
+
+@pytest.mark.parametrize("dtype,gelu", FLAVOURS)
+@pytest.mark.parametrize("b,h,w,c,p", [(2, 5, 7, 3, 40), (1, 9, 9, 48, 24), (3, 4, 4, 17, 64),
+                                       (2, 33, 31, 64, 64)])
+def test_k2_matches_plain(cuda, dtype, gelu, b, h, w, c, p):
+    rng = np.random.default_rng(c * 100 + p + 1)
+    hh, x, g = _act(rng, b, c, h, w, dtype), _act(rng, b, c, h, w, dtype), _act(rng, b, p, h, w, dtype)
+    w1, b1, w2, _, ws = _weights(rng, c, p, dtype)
+    stats = instance_stats(hh)
+    got = bc.block_core_bwd(hh, x, *stats, g, w1, b1, w2, ws, gelu=gelu)
+    want = bc.block_core_bwd_reference(hh, x, *stats, g, w1, b1, w2, ws, gelu=gelu)
+    _assert_bwd_close(got, want, dtype, "dn dx dW1 db1 dW2 db2 dWs S1 S2".split())
+
+
+@pytest.mark.parametrize("dtype,gelu", FLAVOURS)
+@pytest.mark.parametrize("b,h,w,c1,c2,p", [(2, 5, 7, 24, 40, 32), (1, 6, 6, 5, 3, 20),
+                                           (2, 17, 9, 64, 64, 64)])
+def test_k4_matches_plain(cuda, dtype, gelu, b, h, w, c1, c2, p):
+    rng = np.random.default_rng(c1 * 100 + c2 + 1)
+    ha, hb = _act(rng, b, c1, h, w, dtype), _act(rng, b, c2, h, w, dtype)
+    xa, xb = _act(rng, b, c1, h, w, dtype), _act(rng, b, c2, h, w, dtype)
+    g = _act(rng, b, p, h, w, dtype)
+    w1, b1, w2, _, ws = _weights(rng, c1 + c2, p, dtype)
+    stats = [*instance_stats(ha), *instance_stats(hb)]
+    got = bc.block_core2_bwd(ha, hb, xa, xb, *stats, g, w1, b1, w2, ws, gelu=gelu)
+    want = bc.block_core2_bwd_reference(ha, hb, xa, xb, *stats, g, w1, b1, w2, ws, gelu=gelu)
+    _assert_bwd_close(got, want, dtype,
+                      "dna dnb dxa dxb dW1 db1 dW2 db2 dWs S1a S2a S1b S2b".split())
+
+
+def test_backward_repeats_bit_for_bit(cuda):
+    """Every sum of K4 is taken in one fixed order: two calls agree exactly."""
+    rng = np.random.default_rng(12)
+    dtype = torch.bfloat16
+    parts = [_act(rng, 2, 32, 24, 24, dtype) for _ in range(4)]
+    g = _act(rng, 2, 48, 24, 24, dtype)
+    w1, b1, w2, _, ws = _weights(rng, 64, 48, dtype)
+    stats = [*instance_stats(parts[0]), *instance_stats(parts[1])]
+    one = bc.block_core2_bwd(*parts, *stats, g, w1, b1, w2, ws)
+    two = bc.block_core2_bwd(*parts, *stats, g, w1, b1, w2, ws)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_autograd_runs_k1_k2_and_counts_once_each(cuda):
+    rng = np.random.default_rng(13)
+    dtype = torch.bfloat16
+    h, x = (_act(rng, 2, 16, 8, 8, dtype).requires_grad_() for _ in range(2))
+    ws = [t.requires_grad_() for t in _weights(rng, 16, 24, dtype)]
+    ha, hb, xa, xb = (_act(rng, 2, 8, 8, 8, dtype).requires_grad_() for _ in range(4))
+    ws2 = [t.requires_grad_() for t in _weights(rng, 16, 24, dtype)]
+    for f in (bc.block_core, bc.block_core2, bc.block_core_bwd, bc.block_core2_bwd):
+        f.launches = 0
+    loss = bc.block_core_in(h, x, *ws).float().square().sum() + \
+        bc.block_core2_in(ha, hb, xa, xb, *ws2).float().square().sum()
+    loss.backward()
+    counts = [f.launches for f in (bc.block_core, bc.block_core2, bc.block_core_bwd,
+                                   bc.block_core2_bwd)]
+    assert counts == [1, 1, 1, 1]
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in (h, x, ha, hb, xa, xb, *ws, *ws2))
+
+
+# the generator's gradient, kernel path vs plain path at 64x64: rel-L2 of
+# each K2/K4 output at block level; median over the block weights; kernel
+# path's median distance to the f32 gradient over the plain path's. Set from
+# readings on an H100 (PERF.md, "Gradient gate").
+GRAD_GATE = dict(block=5e-3, median=3e-2, ratio=1.10)
+# faults of a known size in every K2/K4 output (see ``_faulty``), each of
+# which the gate must refuse
+CONTROLS = [("gain", 0.02), ("gain", 0.01), ("noise", 0.02), ("noise", 0.01)]
+
+
+def _faulty(kernel, kind, size):
+    def call(*args, packed=None):
+        out = kernel(*args, packed=packed)
+        if kind == "gain":
+            return tuple((o.float() * (1 + size)).to(o.dtype) for o in out)
+        return tuple((o.float() * (1 + size * torch.randn_like(o, dtype=torch.float32)))
+                     .to(o.dtype) for o in out)
+
+    call.launches = 0
+    return call
+
+
+def _folds(out, args, n):
+    """dh of each of the n parts from a K2 / K4 output and its arguments."""
+    ss = out[len(out) - 2 * n:]
+    return [bc.in_fold(out[i], args[i], args[2 * n + 2 * i], args[2 * n + 2 * i + 1], ss[2 * i],
+                       ss[2 * i + 1]) for i in range(n)]
+
+
+@pytest.mark.parametrize("seed", [2, 3, 4])
+def test_generator_gradients_kernel_path_match_plain_path(cuda, monkeypatch, seed):
+    """The full-width training generator at 64x64, bf16 compute, f32
+    parameters, same weights, input and target on both paths, cuDNN held to
+    deterministic algorithms. Block by block on the cotangent the kernel
+    path delivers, every K2/K4 output and the folded dh within rel-L2
+    GRAD_GATE["block"] of the plain version's. Over the whole generator
+    bf16 rounding accumulates along the backward, so there the median
+    block-weight rel-L2 has a looser limit, and the kernel path must be no
+    farther than the plain path, within GRAD_GATE["ratio"], from the same
+    gradient in f32 (TF32 off, the same tanh GELU). Faulty K2/K4 controls
+    must fail the whole-generator part of the gate on its own. The dwconv
+    biases are left out: the InstanceNorm after the depthwise conv makes
+    their gradient zero in exact arithmetic. Prints its readings (``-s``)."""
+    from dsgan_tpu_torch.models import define_G
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    net = define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.bfloat16, device="cuda", seed=seed,
+                   train=True)
+    rng = np.random.default_rng(seed + 4)
+    x = _act(rng, 2, 3, 64, 64, torch.float32).clamp(-1, 1)
+    tgt = _act(rng, 2, 3, 64, 64, torch.float32)
+    blocks = {k for k, _ in net.named_parameters()
+              if k.split(".")[0][:2] in ("c1", "c2", "c3", "c4", "c5", "uc")
+              and not k.endswith("dwconv.bias")}
+
+    def grads(net=net):
+        net.zero_grad(set_to_none=True)
+        (net(x).float() - tgt).square().mean().backward()
+        return {k: p.grad.clone() for k, p in net.named_parameters() if k in blocks}
+
+    def held(kernel, plain, n, sink):
+        def call(*args, packed=None):
+            out = kernel(*args, packed=packed)
+            ref = plain(*args)
+            dh = zip(_folds(out, args, n), _folds(ref, args, n))
+            sink.append([_rel_l2(o, r) for o, r in [*zip(out, ref), *dh]])
+            return out
+        call.launches = 0  # the comparison's launches stay off the real counts
+        return call
+
+    def blockwise(k2, k4, sink):
+        return (mock.patch.object(bc, "block_core_bwd", held(k2, bc.block_core_bwd_reference, 1,
+                                                             sink)),
+                mock.patch.object(bc, "block_core2_bwd", held(k4, bc.block_core2_bwd_reference, 2,
+                                                              sink)))
+
+    for f in (bc.block_core, bc.block_core2, bc.block_core_bwd, bc.block_core2_bwd):
+        f.launches = 0
+    kernel_bwd, kernel_bwd2 = bc.block_core_bwd, bc.block_core2_bwd
+    per_block = {"kernel": []}
+    p2, p4 = blockwise(kernel_bwd, kernel_bwd2, per_block["kernel"])
+    with p2, p4:
+        got = {"kernel": grads()}
+    assert [f.launches for f in (bc.block_core, bc.block_core2)] == [5, 4]
+    # K2: dn dx, 5 weight gradients, S1 S2, dh; K4: both parts of each
+    assert [len(r) for r in per_block["kernel"]] == [15] * 4 + [10] * 5
+    for kind, size in CONTROLS:
+        name = f"{kind} {size}"
+        per_block[name] = []
+        torch.cuda.manual_seed(99)
+        p2, p4 = blockwise(_faulty(kernel_bwd, kind, size), _faulty(kernel_bwd2, kind, size),
+                           per_block[name])
+        with p2, p4:
+            got[name] = grads()
+    with mock.patch.object(bc, "block_core", _plain_fwd), \
+            mock.patch.object(bc, "block_core2", _plain_fwd2), \
+            mock.patch.object(bc, "block_core_bwd", _plain_bwd), \
+            mock.patch.object(bc, "block_core2_bwd", _plain_bwd2):
+        want = grads()
+        truth = grads(define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.float32, device="cuda",
+                               seed=seed, train=True, gelu_mode="tanh"))
+
+    def median(vals):
+        vals = sorted(vals)
+        return vals[len(vals) // 2]
+
+    plain_f32 = median(_rel_l2(want[k], truth[k]) for k in truth)
+
+    def gate(name):
+        g = got[name]
+        r = dict(block_worst=max(max(b) for b in per_block[name]),
+                 median_vs_plain=median(_rel_l2(g[k], want[k]) for k in want),
+                 ratio=median(_rel_l2(g[k], truth[k]) for k in truth) / plain_f32)
+        r["whole_passes"] = (r["median_vs_plain"] <= GRAD_GATE["median"]
+                             and r["ratio"] <= GRAD_GATE["ratio"])
+        r["passes"] = (len(per_block[name]) == 9 and r["block_worst"] <= GRAD_GATE["block"]
+                       and r["whole_passes"])
+        return r
+
+    readings = dict(seed=seed, plain_vs_f32=plain_f32, **{k: gate(k) for k in got})
+    print("gradient readings:", readings)
+    assert readings["kernel"]["passes"], readings
+    assert not any(readings[f"{kind} {size}"]["whole_passes"] for kind, size in CONTROLS), \
+        readings
+
+
+def _rel_l2(got, want):
+    return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
+
+
+def _plain_fwd(*args, packed=None):
+    return bc.block_core_reference(*args)
+
+
+def _plain_fwd2(*args, packed=None):
+    return bc.block_core2_reference(*args)
+
+
+def _plain_bwd(*args, packed=None):
+    return bc.block_core_bwd_reference(*args)
+
+
+def _plain_bwd2(*args, packed=None):
+    return bc.block_core2_bwd_reference(*args)
