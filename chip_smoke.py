@@ -9,13 +9,16 @@ Phases, each of which fails the run:
   1. the device, and its name and power limit as nvidia-smi reports them;
   2. build every CUDA kernel from ``dsgan_tpu_torch/csrc`` with nvcc, one
      nvcc per source, all started together;
-  3. hold K1 (block_core_fwd) at the c1-c5 shapes and K3 (block_core2_fwd)
-     at the uc1-uc4 shapes of the 256x256 generator against their plain
-     PyTorch versions on the card: bf16 with tanh GELU at batch 1 and 16
-     (rtol = atol = 2e-2), f32 with erf GELU at batch 1 (2e-4, TF32 off);
-     time each with CUDA events beside its bound;
-  4. the same for K2 (block_core_bwd) and K4 (block_core2_bwd) on a
-     random cotangent: bf16/tanh at batch 16 (dn, dx and the folded dh
+  3. hold K1 (block_core_fwd) at the c1-c5 shapes and K3 at the uc1-uc4
+     shapes of the 256x256 generator against their plain PyTorch versions
+     on the card: bf16 with tanh GELU at batch 1 and 16 (rtol = atol =
+     2e-2; K3 in bf16 is the Hopper kernel block_core2_fwd_sm90, read
+     also as rel-L2), f32 with erf GELU at batch 1 (2e-4, TF32 off; K3's
+     FMA check build block_core2_fwd); time each with CUDA events beside
+     its bound;
+  4. the same for K2 (block_core_bwd) and K4 (in bf16 the Hopper kernel
+     block_core2_bwd_sm90, in f32 the FMA check build) on a random
+     cotangent: bf16/tanh at batch 16 (dn, dx and the folded dh
      within 2e-2 / 2e-2 elementwise; every weight gradient and S sum within
      rel-L2 1e-2 and max-abs 2e-2 * max|ref|), f32/erf at batch 1 (1e-3
      relative, atol 1e-3 * max|ref|, TF32 off);
@@ -187,11 +190,17 @@ def check_backward(torch, bc, instance_stats, batch, dtype, gelu, iters):
                 ms = time_ms(torch, run, iters)
                 plain_ms = time_ms(torch, plain, iters)
             b_ms, b_by = bound_bwd(batch, side * side, c, p, dname)
+            cp, h4p = packed.w1.shape
+            if kernel == "K4" and dtype == torch.bfloat16:
+                # the Hopper kernel: 128-row tiles, and the weight pass's row splits
+                tile = dict(rows=128, splits=[j.nsplit for j in bc.k4_plan(
+                    batch, side * side, cp, h4p, p, packed.w2.shape[1]).jobs])
+            else:
+                tile = dict(rows=bc.bwd_rows(packed.w1.element_size(), cp, bc._hidden_chunk(h4p),
+                                             packed.w2.shape[1]))
             row = dict(kernel=kernel, site=site, batch=batch, dtype=dname, gelu=gelu,
                        max_abs_err=max_abs, worst_rel_l2=worst_rel, ok=ok, ms=ms,
-                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, tm=bc.bwd_rows(
-                           packed.w1.element_size(), packed.w1.shape[0],
-                           bc._hidden_chunk(packed.w1.shape[1]), packed.w2.shape[1]))
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, tile=tile)
             print(json.dumps(row))
             rows.append(row)
             if not ok:
@@ -237,12 +246,16 @@ def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
                 err = (got.float() - want.float()).abs()
                 ok = bool(torch.isfinite(got).all()) and bool(
                     (err <= tol["atol"] + tol["rtol"] * want.float().abs()).all())
+                rel = rel_l2(got, want)
                 ms = time_ms(torch, run, iters)
                 plain_ms = time_ms(torch, plain, iters)
             b_ms, b_by = bound(batch, side * side, c, p, dname)
             row = dict(kernel=kernel, site=site, batch=batch, dtype=dname, gelu=gelu,
-                       max_abs_err=float(err.max()), ok=ok, ms=ms, plain_ms=plain_ms,
+                       max_abs_err=float(err.max()), rel_l2=rel, ok=ok, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by)
+            if kernel == "K3" and dtype == torch.bfloat16:
+                row["plan"] = bc.k3_plan(batch * side * side, packed.w1.shape[0],
+                                         packed.w2.shape[1])._asdict()
             print(json.dumps(row))
             rows.append(row)
             if not ok:
@@ -251,9 +264,11 @@ def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
     return rows
 
 
-_CLASSES = (("block_core fwd (K1/K3)", ("block_core_kernel",)),
+# kernel names by class; the block-core classes come first ("sm90" also
+# names cuDNN's kernels)
+_CLASSES = (("block_core fwd (K1/K3)", ("block_core_kernel", "bc2_fwd_sm90")),
             ("block_core bwd (K2/K4)", ("bwd_rows_kernel", "bwd_weights_kernel",
-                                        "bwd_reduce_kernel")),
+                                        "bwd_reduce_kernel", "bc2_bwd_sm90")),
             ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "depthwise", "implicit", "fprop",
                                      "dgrad", "wgrad", "sm90", "gemm")),
             ("optimizer (Adam)", ("adam", "multi_tensor", "foreach")),
@@ -664,8 +679,8 @@ def main(argv=None):
     for name, src_fn, line, src, table in (
             ("K1", "block_core_fwd", 205, "block_core.cu", rows),
             ("K2", "block_core_bwd", 262, "block_core_bwd.cu", bwd_rows),
-            ("K3", "block_core2_fwd", 553, "block_core.cu", rows),
-            ("K4", "block_core2_bwd", 598, "block_core_bwd.cu", bwd_rows)):
+            ("K3", "block_core2_fwd_sm90", 553, "block_core2_fwd_sm90.cu", rows),
+            ("K4", "block_core2_bwd_sm90", 598, "block_core2_bwd_sm90.cu", bwd_rows)):
         main = [r for r in table if r["kernel"] == name and r["batch"] == 16]
         bf16 = [r for r in table if r["kernel"] == name and r["dtype"] == "bfloat16"]
         by_ops = sum(r["bound_ms"] for r in main if r["bound_by"] == "operations")

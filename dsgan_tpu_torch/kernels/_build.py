@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface, compiled by nvcc for Hopper (``sm_90a``) into
-``dsgan_tpu_torch/_build/`` and loaded with ctypes. A library is rebuilt
-when its source or the flags change (the file name carries their hash),
-and several missing libraries build in parallel, one nvcc each.
+``dsgan_tpu_torch/_build/`` and loaded with ctypes. The sources may
+include the headers beside them (``csrc/*.cuh``). A library is rebuilt
+when its source, a header or the flags change (the file name carries
+their hash), and several missing libraries build in parallel, one nvcc
+each. No library links against the driver: the Hopper kernels reach
+``cuTensorMapEncodeTiled`` through the runtime's driver entry point.
 
 Nothing here runs at import: the module imports on a machine without
 nvcc, triton or CUDA, and only a launch on a CUDA tensor reaches it.
@@ -38,8 +41,11 @@ def _nvcc():
 
 
 def library_path(name):
-    """Where ``csrc/<name>.cu`` builds to, named by the hash of source and flags."""
+    """Where ``csrc/<name>.cu`` builds to, named by the hash of source,
+    headers and flags."""
     digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -18,6 +18,13 @@ forward and K2 / K4 backward, and fold S1, S2 into the closed-form
 InstanceNorm cotangent (``in_fold``), as ``_in_vjp_bwd`` /
 ``_in2_vjp_bwd`` do in the JAX package.
 
+K3 and K4 in bf16 run the Hopper kernels ``csrc/block_core2_fwd_sm90.cu``
+and ``csrc/block_core2_bwd_sm90.cu`` (wgmma fed by TMA, 128-row tiles);
+in f32 they run the FMA check builds of ``block_core.cu`` /
+``block_core_bwd.cu``. ``k3_plan`` and ``k4_plan`` mirror the tile,
+shared-memory and workspace plans of the bf16 kernels and raise on what
+they cannot take.
+
 Activations are NCHW tensors. On a CUDA tensor a wrapper launches its
 kernel, which needs them contiguous in ``torch.channels_last`` order (the
 kernels read (H*W, C) pixel rows), or raises; it never falls back. On a
@@ -52,6 +59,7 @@ from dsgan_tpu_torch.ops.norm import instance_stats
 
 # Shared memory a block may use on Hopper (232,448 bytes).
 MAX_SMEM = 227 * 1024
+SMS = 132  # streaming multiprocessors of the H100
 ROWS_PER_BLOCK = 32  # TM of the forward in the CUDA source
 BWD_ROWS = (32, 16)  # row-pass tiles of the backward, the first that fits
 CL = torch.channels_last
@@ -72,6 +80,11 @@ class PackedWeights(NamedTuple):
     c1p: int           # padded rows of part a; part b starts here
     h4: int
     p: int
+    # bf16 two-part packs only: the transposes (H4p, Cp), (Pp, H4p), (Pp, Cp)
+    # that the Hopper kernels read as K-major operands
+    w1t: torch.Tensor = None
+    w2t: torch.Tensor = None
+    wst: torch.Tensor = None
 
 
 def pack_weights(w1, b1, w2, b2, ws, dtype, c1=None):
@@ -95,8 +108,11 @@ def pack_weights(w1, b1, w2, b2, ws, dtype, c1=None):
     b1p[:h4] = b1
     b2p = b2.new_zeros((pp,), dtype=dtype)
     b2p[:p] = b2
-    return PackedWeights(rows_split(w1, h4p), b1p, w2p, b2p, rows_split(ws, pp),
-                         c1, c1p, h4, p)
+    w1p, wsp = rows_split(w1, h4p), rows_split(ws, pp)
+    tr = {}
+    if dtype == torch.bfloat16 and c1 < c:
+        tr = dict(w1t=w1p.t().contiguous(), w2t=w2p.t().contiguous(), wst=wsp.t().contiguous())
+    return PackedWeights(w1p, b1p, w2p, b2p, wsp, c1, c1p, h4, p, **tr)
 
 
 def block_core_reference(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu="tanh"):
@@ -214,22 +230,38 @@ def in_fold(dn, h, mean, rsig, s1, s2):
     return dn * col(rsig) - h * col(c3) + col(c0)
 
 
+SOURCES = ("block_core", "block_core_bwd", "block_core2_fwd_sm90", "block_core2_bwd_sm90")
+
+
+class _Entries(NamedTuple):
+    fwd: object    # K1 and the f32 K3
+    fwd2: object
+    bwd: object    # K2 and the f32 K4
+    fwd2_sm90: object
+    bwd2_sm90: object
+
+
 @functools.cache
 def _lib():
-    """(forward library, the backward's entry), built together at first use."""
+    """The kernels' C entries, every source built at first use (in parallel)."""
     from dsgan_tpu_torch.kernels import _build
 
-    _build.build(["block_core", "block_core_bwd"])
-    lib = _build.load("block_core")
+    _build.build(list(SOURCES))
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.block_core_fwd.argtypes = [i, i] + [p] * 10 + [ll] + [i] * 7 + [p]
-    lib.block_core_fwd.restype = i
-    lib.block_core2_fwd.argtypes = [i, i] + [p] * 14 + [ll] + [i] * 9 + [p]
-    lib.block_core2_fwd.restype = i
+    size = ctypes.POINTER(ctypes.c_ulonglong)
+    lib = _build.load("block_core")
+    fwd, fwd2 = lib.block_core_fwd, lib.block_core2_fwd
+    fwd.argtypes = [i, i] + [p] * 10 + [ll] + [i] * 7 + [p]
+    fwd2.argtypes = [i, i] + [p] * 14 + [ll] + [i] * 9 + [p]
     bwd = _build.load("block_core_bwd").block_core_bwd
-    bwd.argtypes = [i] * 3 + [p] * 26 + [i] * 11 + [p, ctypes.POINTER(ctypes.c_ulonglong), p]
-    bwd.restype = i
-    return lib, bwd
+    bwd.argtypes = [i] * 3 + [p] * 26 + [i] * 11 + [p, size, p]
+    fwd2_sm90 = _build.load("block_core2_fwd_sm90").block_core2_fwd_sm90
+    fwd2_sm90.argtypes = [i] + [p] * 14 + [ll] + [i] * 13 + [p]
+    bwd2_sm90 = _build.load("block_core2_bwd_sm90").block_core2_bwd_sm90
+    bwd2_sm90.argtypes = [i] + [p] * 27 + [i] * 11 + [p, size, p]
+    for f in (fwd, fwd2, bwd, fwd2_sm90, bwd2_sm90):
+        f.restype = i
+    return _Entries(fwd, fwd2, bwd, fwd2_sm90, bwd2_sm90)
 
 
 def _hidden_chunk(h4p):
@@ -269,6 +301,113 @@ def bwd_rows(itemsize, cp, hc, pp):
     raise ValueError(f"block core backward tile needs {need} B of shared memory (> {MAX_SMEM})")
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _align256(n):
+    return _cdiv(n, 256) * 256
+
+
+class K3Plan(NamedTuple):
+    """Tiles of the bf16 K3 kernel (``csrc/block_core2_fwd_sm90.cu``)."""
+    nwg: int     # consumer warpgroups of 64 rows: 128 or 64 rows a block
+    pn: int      # output columns a block
+    hc: int      # hidden columns a GEMM1 chunk
+    stages: int  # weight tiles in flight
+    smem: int    # shared memory a block, bytes
+    splits: int  # blocks over the output columns of one row tile
+
+
+def k3_smem_bytes(rows, cp, pn, hc, stages):
+    """Mirrors ``smem_bytes`` in ``csrc/block_core2_fwd_sm90.cu``: the
+    resident A tile (rows x Cp rounded up to 64, bf16), the ring of weight
+    tiles, the barriers, alignment slack."""
+    return 1024 + _cdiv(cp, 64) * rows * 128 + stages * max(pn, hc) * 128 + 16 * stages
+
+
+def k3_plan(m, cp, pp):
+    """K3's tiles for ``m`` rows: output columns in blocks of at most 256
+    (P = 512 splits in two, each block recomputing GEMM1), 128 rows a
+    block where that tile fits shared memory and still gives every SM a
+    block, else 64; the deepest ring (4 stages at most) that fits. Raises
+    where not even 64 rows fit."""
+    pn = 64 if pp <= 64 else 128 if pp <= 128 else 256
+    hc = 64 if pn == 256 else 128
+    splits = _cdiv(pp, pn)
+    for nwg in (2, 1):
+        if nwg == 2 and _cdiv(m, 128) * splits < SMS:
+            continue
+        for stages in (4, 3, 2):
+            smem = k3_smem_bytes(64 * nwg, cp, pn, hc, stages)
+            if smem <= MAX_SMEM:
+                return K3Plan(nwg, pn, hc, stages, smem, splits)
+    need = k3_smem_bytes(64, cp, pn, hc, 2)
+    raise ValueError(f"block core K3 tile needs {need} B of shared memory (> {MAX_SMEM})")
+
+
+# the bf16 K4 kernel (csrc/block_core2_bwd_sm90.cu): STAGES-deep rings;
+# R1 / R2 stages hold a 128 x 64 A box and a 128 x 64 B box, plus 4 KB for
+# the column sums; weight-pass stages two 64 x 64 A boxes and BN / 64 B boxes
+K4_STAGES = 4
+K4_ROW_SMEM = 1024 + K4_STAGES * 32768 + 16 * K4_STAGES + 8 * 128 * 4
+K4_W_SMEM = {bn: 1024 + K4_STAGES * (16384 + bn * 128) + 16 * K4_STAGES for bn in (64, 128)}
+
+
+class K4Job(NamedTuple):
+    rows: int    # output rows (R) of the product over the pixel rows
+    cols: int    # padded output columns (N)
+    bn: int      # output tile width
+    nsplit: int  # splits of the pixel rows
+    rps: int     # pixel rows a split
+
+
+class K4Plan(NamedTuple):
+    timg: int            # 128-row tiles a image
+    tiles: int           # in all
+    gcopy: bool          # g padded into the workspace (P % 8 != 0)
+    jobs: tuple          # K4Job of dW1, dW2, dWs
+    workspace: int       # bytes
+    smem: int            # shared memory of the largest block, bytes
+
+
+def _reduce_tmp(groups, terms, cols):
+    """Floats the first level of a two-level reduce keeps (64 terms a sum)."""
+    return groups * _cdiv(terms, 64) * cols if terms > 64 else 0
+
+
+def k4_plan(b, hw, cp, h4p, p, pp):
+    """Mirrors ``make_plan`` in ``csrc/block_core2_bwd_sm90.cu``: the row
+    tiles, the splits of the weight pass and the workspace (a and x side
+    by side, g padded where P % 8 != 0, ag, dg1, the partial sums, the
+    reduce's first level). Its tiles, hence its shared memory, do not
+    depend on C; it raises where the kernels' 32-bit indices cannot take
+    the call."""
+    m = b * hw
+    if m * max(cp, h4p, pp) >= 2 ** 31:
+        raise ValueError(f"block core K4 takes fewer than 2^31 elements a matrix, not {m} rows")
+    timg = _cdiv(hw, 128)
+    tiles = b * timg
+    gcopy = p % 8 != 0
+    total = 0
+    for nbytes in (m * cp * 2, m * cp * 2, m * pp * 2 if gcopy else 0, m * h4p * 2, m * h4p * 2,
+                   4 * tiles * h4p, 4 * tiles * pp, 4 * tiles * cp, 4 * tiles * cp):
+        total = _align256(total + nbytes)
+    jobs, tmp = [], 0
+    for r, n in ((cp, h4p), (h4p, pp), (cp, pp)):
+        bn = 128 if n > 64 else 64
+        tiles_out = _cdiv(r, 128) * _cdiv(n, bn)
+        ns = max(1, min(_cdiv(2 * SMS, tiles_out), _cdiv(m, 512)))
+        rps = _cdiv(_cdiv(m, ns), 64) * 64
+        nsplit = _cdiv(m, rps)
+        jobs.append(K4Job(r, n, bn, nsplit, rps))
+        total = _align256(total + 4 * r * nsplit * n)
+        tmp = max(tmp, _reduce_tmp(r, nsplit, n))
+    tmp = max(tmp, _reduce_tmp(1, tiles, h4p), _reduce_tmp(1, tiles, pp), _reduce_tmp(b, timg, cp))
+    total = _align256(total + 4 * tmp)
+    return K4Plan(timg, tiles, gcopy, tuple(jobs), total, max(K4_ROW_SMEM, *K4_W_SMEM.values()))
+
+
 def _check_shapes(parts):
     """Each part: x shaped as h, f32 (B, C) statistics of h."""
     for h, x, mean, rsig in parts:
@@ -300,6 +439,40 @@ def _check_cuda(acts, packed, dtype):
     for w in (packed.w1, packed.b1, packed.w2, packed.b2, packed.ws):
         if w.device != acts[0].device or w.dtype != dtype or not w.is_contiguous():
             raise ValueError("packed weights must be contiguous, in the activations' dtype and device")
+
+
+def _check_transposes(packed):
+    """The bf16 K3 / K4 kernels read the transposed weights."""
+    if packed.w1t is None:
+        raise ValueError("packed weights lack the transposes of a bf16 two-part pack_weights")
+
+
+def _vec(acts, stats, c1, c2):
+    """Whether the kernels may read the parts' rows 16 bytes at a time."""
+    return int(c1 % 8 == 0 and c2 % 8 == 0
+               and all(t.data_ptr() % 16 == 0 for t in (*acts, *stats)))
+
+
+def _launch_k3_sm90(acts, stats, packed, gelu, shape, c2):
+    """The bf16 K3 kernel (``csrc/block_core2_fwd_sm90.cu``) on its plan."""
+    b, c1, hh, ww = shape
+    cp, h4p = packed.w1.shape
+    pp = packed.w2.shape[1]
+    m = b * hh * ww
+    plan = k3_plan(m, cp, pp)
+    _check_transposes(packed)
+    out = torch.empty((b, packed.p, hh, ww), dtype=acts[0].dtype, device=acts[0].device,
+                      memory_format=CL)
+    stream = torch.cuda.current_stream(acts[0].device).cuda_stream
+    stats = [s.contiguous() for s in stats]
+    ptrs = [t.data_ptr() for t in (*acts, *stats, packed.w1t, packed.b1, packed.w2t, packed.b2,
+                                   packed.wst, out)]
+    dims = [hh * ww, c1, c2, packed.c1p, cp, h4p, packed.p, pp, plan.nwg, plan.pn, plan.hc,
+            plan.stages, _vec(acts, stats, c1, c2)]
+    err = _lib().fwd2_sm90(int(gelu == "tanh"), *ptrs, m, *dims, stream)
+    if err:
+        raise RuntimeError(f"block core K3 launch failed: error {err}")
+    return out
 
 
 def _launch(fn, acts, stats, packed, gelu, shape, c2):
@@ -337,7 +510,7 @@ def block_core(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
     _check_packed(packed, h)
     _check_shapes(((h, x, mean, rsig),))
     _check_cuda((h, x), packed, h.dtype)
-    out = _launch(_lib()[0].block_core_fwd, (h, x), (mean, rsig), packed, gelu, h.shape, 0)
+    out = _launch(_lib().fwd, (h, x), (mean, rsig), packed, gelu, h.shape, 0)
     block_core.launches += 1
     return out
 
@@ -352,17 +525,22 @@ def block_core2(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, gelu="tanh",
     _check_packed(packed, ha, hb)
     _check_shapes(((ha, xa, ma, ra), (hb, xb, mb, rb)))
     _check_cuda((ha, hb, xa, xb), packed, ha.dtype)
-    out = _launch(_lib()[0].block_core2_fwd, (ha, hb, xa, xb), (ma, ra, mb, rb), packed, gelu,
-                  ha.shape, hb.shape[1])
+    acts, stats = (ha, hb, xa, xb), (ma, ra, mb, rb)
+    if ha.dtype == torch.bfloat16:  # the Hopper kernel
+        if gelu not in ("tanh", "erf"):
+            raise ValueError(f"unknown gelu flavour [{gelu}]")
+        out = _launch_k3_sm90(acts, stats, packed, gelu, ha.shape, hb.shape[1])
+    else:  # the FMA check build
+        out = _launch(_lib().fwd2, acts, stats, packed, gelu, ha.shape, hb.shape[1])
     block_core2.launches += 1
     return out
 
 
 def _launch_bwd(parts, g, packed, gelu):
     """K2 (one part) or K4 (two parts); ``parts``: [(h, x, mean, rsig), ...].
-    Allocates the outputs and the kernel's workspace (the ag / dg1 scratch
-    and the f32 partial sums), then runs the row pass, the weight pass and
-    the reduce on the current stream."""
+    Allocates the outputs and the kernel's workspace (the scratch and the
+    f32 partial sums), then runs every pass on the current stream: in bf16
+    K4 the Hopper kernel's (``k4_plan``), else the 32-row kernel's."""
     (ha, xa, ma, ra), (hb, xb, mb, rb) = parts[0], (parts[1] if len(parts) > 1 else (None,) * 4)
     b, c1, hh, ww = ha.shape
     c2 = hb.shape[1] if hb is not None else 0
@@ -375,8 +553,13 @@ def _launch_bwd(parts, g, packed, gelu):
     _check_cuda([t for pt in parts for t in pt[:2]] + [g], packed, dtype)
     cp, h4p = packed.w1.shape
     pp = packed.w2.shape[1]
-    hc = _hidden_chunk(h4p)
-    tm = bwd_rows(ha.element_size(), cp, hc, pp)
+    sm90 = c2 and dtype == torch.bfloat16  # K4 in bf16: the Hopper kernel
+    if sm90:
+        plan = k4_plan(b, hh * ww, cp, h4p, packed.p, pp)
+        _check_transposes(packed)
+    else:
+        hc = _hidden_chunk(h4p)
+        tm = bwd_rows(ha.element_size(), cp, hc, pp)
 
     def act(c):
         return torch.empty((b, c, hh, ww), dtype=dtype, device=dev, memory_format=CL)
@@ -395,13 +578,25 @@ def _launch_bwd(parts, g, packed, gelu):
         return None if t is None else t.data_ptr()
 
     stats = [None if t is None else t.contiguous() for t in (ma, ra, mb, rb)]
-    tensors = (ha, hb, xa, xb, g, *stats, packed.w1, packed.b1, packed.w2, packed.ws,
-               dna, dnb, dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b)
-    head = [int(dtype == torch.bfloat16), int(gelu == "tanh"), tm] + [ptr(t) for t in tensors]
-    dims = [b, hh * ww, c1, c2, packed.c1p, cp, h4, h4p, hc, p, pp]
-    fn = _lib()[1]
+    outs = (dna, dnb, dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b)
+    if sm90:
+        if g.data_ptr() % 16:  # TMA reads g's rows from a 16-byte aligned base
+            g = g.clone(memory_format=CL)
+        tensors = (ha, hb, xa, xb, g, *stats, packed.w1, packed.w1t, packed.b1, packed.w2,
+                   packed.ws, *outs)
+        head = [int(gelu == "tanh")] + [ptr(t) for t in tensors]
+        dims = [b, hh * ww, c1, c2, packed.c1p, cp, h4, h4p, p, pp,
+                _vec((ha, hb, xa, xb), stats, c1, c2)]
+        fn = _lib().bwd2_sm90
+    else:
+        tensors = (ha, hb, xa, xb, g, *stats, packed.w1, packed.b1, packed.w2, packed.ws, *outs)
+        head = [int(dtype == torch.bfloat16), int(gelu == "tanh"), tm] + [ptr(t) for t in tensors]
+        dims = [b, hh * ww, c1, c2, packed.c1p, cp, h4, h4p, hc, p, pp]
+        fn = _lib().bwd
     size = ctypes.c_ulonglong(0)
     fn(*head, *dims, None, ctypes.byref(size), None)
+    if sm90 and size.value != plan.workspace:
+        raise RuntimeError(f"K4 workspace {size.value} B disagrees with k4_plan ({plan.workspace} B)")
     work = torch.empty((size.value,), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*head, *dims, work.data_ptr(), ctypes.byref(size), stream)

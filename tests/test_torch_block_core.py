@@ -120,13 +120,56 @@ def test_packed_weights_reproduce_the_block(c1, c2, p):
 
 def test_model_shapes_fit_shared_memory():
     """Every block of the generator at full width fits one thread block's
-    shared memory in both storage types (the wrapper raises otherwise)."""
-    shapes = [(3, 64), (64, 128), (128, 256), (256, 512), (512, 1024),
-              (1024, 512), (512, 256), (256, 128), (128, 64)]
-    for c, p in shapes:
+    shared memory where it runs the 32-row kernels of block_core.cu: K1 in
+    both storage types, K3 in f32 (bf16 K3 runs on k3_plan, held below)."""
+    shapes = [(3, 64, (2, 4)), (64, 128, (2, 4)), (128, 256, (2, 4)), (256, 512, (2, 4)),
+              (512, 1024, (2, 4)), (1024, 512, (4,)), (512, 256, (4,)), (256, 128, (4,)),
+              (128, 64, (4,))]
+    for c, p, itemsizes in shapes:
         cp, h4p, pp = bc._ceil16(c), bc._ceil16(4 * c), bc._ceil16(p)
         hc = bc._hidden_chunk(h4p)
-        for itemsize in (2, 4):
+        for itemsize in itemsizes:
             assert bc.smem_bytes(itemsize, cp, hc, pp) <= bc.MAX_SMEM, (c, p, itemsize)
     # c5 in f32: (1024 + 4 + 128 + 4) * 4 * 32 + (512 + 4) * 4 * 32 bytes
     assert bc.smem_bytes(4, 512, 128, 1024) == 214528
+
+
+# (site, H = W at 256x256, C = both parts, P) of the decoder's blocks
+UC = [("uc1", 32, 1024, 512), ("uc2", 64, 512, 256), ("uc3", 128, 256, 128), ("uc4", 256, 128, 64)]
+# bf16 K3 per site at batch 1 and 16: (consumer warpgroups, output columns a
+# block, hidden chunk, ring stages, shared memory bytes, column splits)
+K3_PLANS = {
+    "uc1": {1: (1, 256, 64, 3, 230448, 2), 16: (1, 256, 64, 3, 230448, 2)},
+    "uc2": {1: (1, 256, 64, 4, 197696, 1), 16: (2, 256, 64, 3, 230448, 1)},
+    "uc3": {1: (1, 128, 128, 4, 99392, 1), 16: (2, 128, 128, 4, 132160, 1)},
+    "uc4": {1: (2, 64, 128, 4, 99392, 1), 16: (2, 64, 128, 4, 99392, 1)},
+}
+
+
+@pytest.mark.parametrize("site,side,c,p", UC, ids=[u[0] for u in UC])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_k3_plan_at_full_width(site, side, c, p, batch):
+    """The bf16 K3 kernel's tiles at each decoder site (mirroring
+    csrc/block_core2_fwd_sm90.cu): 128-row blocks where they fit shared
+    memory and fill the 132 SMs, 64 otherwise (uc1 always: its 1024-wide
+    input tile); P = 512 split over two blocks; the batch-1 grids of
+    uc2/uc3 on 64-row tiles."""
+    plan = bc.k3_plan(batch * side * side, bc._ceil16(c), bc._ceil16(p))
+    assert tuple(plan) == K3_PLANS[site][batch]
+    assert plan.smem <= bc.MAX_SMEM
+    assert plan.smem == bc.k3_smem_bytes(64 * plan.nwg, c, plan.pn, plan.hc, plan.stages)
+    assert plan.pn * plan.splits >= p and plan.pn <= 256
+    rows = 64 * plan.nwg
+    blocks = -(-batch * side * side // rows) * plan.splits
+    assert blocks >= bc.SMS or plan.nwg == 1
+
+
+def test_k3_plan_raises_past_shared_memory():
+    # 2048 input channels: the resident 64-row input tile alone is 256 KB
+    assert bc.k3_smem_bytes(64, 2048, 256, 64, 2) == 1024 + 32 * 64 * 128 + 2 * 32768 + 32
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.k3_plan(16 * 32 * 32, 2048, 512)
+    # 1280 channels are the most that fit: 64 rows, two stages
+    assert bc.k3_plan(16 * 32 * 32, 1280, 512)[:4] == (1, 256, 64, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.k3_plan(16 * 32 * 32, 1344, 512)

@@ -1,9 +1,11 @@
-"""The port's CUDA kernels on the card: K1 and K3 (``csrc/block_core.cu``)
-and K2 and K4 (``csrc/block_core_bwd.cu``) against their plain PyTorch
-versions at shapes the generator never gives them (ragged row tiles,
-widths that are not multiples of 16, unequal parts), the wrappers'
-refusals, the launch counters, and the generator's kernel path against
-its plain path, forward and backward. Each test needs a CUDA card and
+"""The port's CUDA kernels on the card: K1 and K3 (``csrc/block_core.cu``;
+bf16 K3 in ``csrc/block_core2_fwd_sm90.cu``) and K2 and K4
+(``csrc/block_core_bwd.cu``; bf16 K4 in ``csrc/block_core2_bwd_sm90.cu``)
+against their plain PyTorch versions at shapes the generator never gives
+them (ragged row tiles, widths that are not multiples of 16, unequal
+parts) and at the decoder's full channel widths, the wrappers' refusals,
+the launch counters, and the generator's kernel path against its plain
+path, forward and backward. Each test needs a CUDA card and
 skips without one. On the card (no JAX needed, hence ``--noconftest``):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -68,9 +70,16 @@ def test_k1_matches_plain(cuda, dtype, gelu, b, h, w, c, p):
     _assert_close(got, want, dtype)
 
 
+# the decoder's sites uc1-uc4 at full channel width, on 12 x 12 pixels (288
+# rows: no whole number of 128-row tiles), and uc4's widths on enough rows
+# for the two-warpgroup tiles (19,800 rows)
+UC_SHAPES = [(2, 12, 12, 512, 512, 512), (2, 12, 12, 256, 256, 256), (2, 12, 12, 128, 128, 128),
+             (2, 12, 12, 64, 64, 64), (2, 100, 99, 64, 64, 64)]
+
+
 @pytest.mark.parametrize("dtype,gelu", FLAVOURS)
 @pytest.mark.parametrize("b,h,w,c1,c2,p", [(2, 5, 7, 24, 40, 32), (1, 6, 6, 5, 3, 20),
-                                           (2, 8, 8, 64, 64, 64)])
+                                           (2, 8, 8, 64, 64, 64)] + UC_SHAPES)
 def test_k3_matches_plain(cuda, dtype, gelu, b, h, w, c1, c2, p):
     rng = np.random.default_rng(c1 * 100 + c2)
     ha, hb = _act(rng, b, c1, h, w, dtype), _act(rng, b, c2, h, w, dtype)
@@ -188,7 +197,7 @@ def test_k2_matches_plain(cuda, dtype, gelu, b, h, w, c, p):
 
 @pytest.mark.parametrize("dtype,gelu", FLAVOURS)
 @pytest.mark.parametrize("b,h,w,c1,c2,p", [(2, 5, 7, 24, 40, 32), (1, 6, 6, 5, 3, 20),
-                                           (2, 17, 9, 64, 64, 64)])
+                                           (2, 17, 9, 64, 64, 64)] + UC_SHAPES)
 def test_k4_matches_plain(cuda, dtype, gelu, b, h, w, c1, c2, p):
     rng = np.random.default_rng(c1 * 100 + c2 + 1)
     ha, hb = _act(rng, b, c1, h, w, dtype), _act(rng, b, c2, h, w, dtype)
@@ -213,6 +222,27 @@ def test_backward_repeats_bit_for_bit(cuda):
     one = bc.block_core2_bwd(*parts, *stats, g, w1, b1, w2, ws)
     two = bc.block_core2_bwd(*parts, *stats, g, w1, b1, w2, ws)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+def test_hopper_kernels_refuse_what_their_plans_cannot_take(cuda):
+    """The bf16 K3 / K4 gates: K3's resident 64-row input tile past shared
+    memory (2048 input channels), and a pack without the transposes."""
+    rng = np.random.default_rng(14)
+    dtype = torch.bfloat16
+    parts = [_act(rng, 1, 1024, 2, 2, dtype) for _ in range(4)]
+    stats = [*instance_stats(parts[0]), *instance_stats(parts[1])]
+    w1, b1, w2, b2, ws = _weights(rng, 2048, 64, dtype)
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.block_core2(*parts, *stats, w1, b1, w2, b2, ws)
+    small = [_act(rng, 1, 8, 4, 4, dtype) for _ in range(4)]
+    stats = [*instance_stats(small[0]), *instance_stats(small[1])]
+    w = _weights(rng, 16, 16, dtype)
+    bare = bc.pack_weights(*w, dtype, c1=8)._replace(w1t=None, w2t=None, wst=None)
+    with pytest.raises(ValueError, match="transposes"):
+        bc.block_core2(*small, *stats, *w, packed=bare)
+    with pytest.raises(ValueError, match="transposes"):
+        bc.block_core2_bwd(*small, *stats, _act(rng, 1, 16, 4, 4, dtype), w[0], w[1], w[2], w[4],
+                           packed=bare)
 
 
 def test_autograd_runs_k1_k2_and_counts_once_each(cuda):
