@@ -9,19 +9,20 @@ Phases, each of which fails the run:
   1. the device, and its name and power limit as nvidia-smi reports them;
   2. build every CUDA kernel from ``dsgan_tpu_torch/csrc`` with nvcc, one
      nvcc per source, all started together;
-  3. hold K1 (block_core_fwd) at the c1-c5 shapes and K3 at the uc1-uc4
-     shapes of the 256x256 generator against their plain PyTorch versions
-     on the card: bf16 with tanh GELU at batch 1 and 16 (rtol = atol =
-     2e-2; K3 in bf16 is the Hopper kernel block_core2_fwd_sm90, read
-     also as rel-L2), f32 with erf GELU at batch 1 (2e-4, TF32 off; K3's
-     FMA check build block_core2_fwd); time each with CUDA events beside
-     its bound;
-  4. the same for K2 (block_core_bwd) and K4 (in bf16 the Hopper kernel
-     block_core2_bwd_sm90, in f32 the FMA check build) on a random
-     cotangent: bf16/tanh at batch 16 (dn, dx and the folded dh
-     within 2e-2 / 2e-2 elementwise; every weight gradient and S sum within
-     rel-L2 1e-2 and max-abs 2e-2 * max|ref|), f32/erf at batch 1 (1e-3
-     relative, atol 1e-3 * max|ref|, TF32 off);
+  3. hold K1 at the c1-c5 shapes and K3 at the uc1-uc4 shapes of the
+     256x256 generator against their plain PyTorch versions on the card:
+     bf16 with tanh GELU at batch 1 and 16 (rtol = atol = 2e-2, read also
+     as rel-L2; the Hopper kernels of block_core2_fwd_sm90.cu on each
+     site's fwd_plan route), f32 with erf GELU at batch 1 (2e-4, TF32 off;
+     the FMA check builds block_core_fwd / block_core2_fwd); time each
+     with CUDA events beside its bound;
+  4. the same for K2 and K4 (in bf16 the Hopper kernel block_core2_bwd_sm90,
+     in f32 the FMA check build block_core_bwd) on a random cotangent:
+     bf16/tanh at batch 16 (dn, dx and the folded dh within 2e-2 / 2e-2
+     elementwise; every weight gradient and S sum within rel-L2 1e-2 and
+     max-abs 2e-2 * max|ref|; the device time of each of its passes from
+     torch.profiler), f32/erf at batch 1 (1e-3 relative, atol 1e-3 *
+     max|ref|, TF32 off);
   5. serve 256x256 uint8 requests at batch 1 and 16 through the full-width
      MixConvNeXtML (bf16, seeded weights carried in through
      ``state_dict_from_jax``), with every launch counter set to 0 first:
@@ -80,17 +81,22 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
-def time_ms(torch, fn, iters):
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+def time_ms(torch, fn, iters, repeats=5):
+    """Time of one call, by CUDA events around ``iters`` calls: the best of
+    ``repeats`` such runs (a call too small to fill the card is paced by the
+    host, whose load from other work only ever adds time)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    best = float("inf")
+    for _ in range(repeats):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def bound(b, hw, c, p, dtype_name):
@@ -116,6 +122,20 @@ def bound_bwd(b, hw, c, p, dtype_name):
     flops = 2 * b * hw * (12 * c * c + 8 * c * p + 2 * c * p)
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / PEAK[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pass_times(torch, fn):
+    """Device ms of each kernel one call of ``fn`` launches, by name, from
+    torch.profiler (a second call, after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: [e.self_device_time_total / 1e3, e.count] for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def rel_l2(got, want):
@@ -189,18 +209,19 @@ def check_backward(torch, bc, instance_stats, batch, dtype, gelu, iters):
                 del got, want
                 ms = time_ms(torch, run, iters)
                 plain_ms = time_ms(torch, plain, iters)
+                passes = pass_times(torch, run) if dtype == torch.bfloat16 else None
             b_ms, b_by = bound_bwd(batch, side * side, c, p, dname)
             cp, h4p = packed.w1.shape
-            if kernel == "K4" and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 # the Hopper kernel: 128-row tiles, and the weight pass's row splits
                 tile = dict(rows=128, splits=[j.nsplit for j in bc.k4_plan(
-                    batch, side * side, cp, h4p, p, packed.w2.shape[1]).jobs])
+                    batch, side * side, cp, h4p, p, packed.w2.shape[1]).jobs],
+                            narrow=bc.narrow_route(parts[0], sum(parts[1:])))
             else:
-                tile = dict(rows=bc.bwd_rows(packed.w1.element_size(), cp, bc._hidden_chunk(h4p),
-                                             packed.w2.shape[1]))
+                tile = dict(rows=bc.bwd_rows(cp, bc._hidden_chunk(h4p), packed.w2.shape[1]))
             row = dict(kernel=kernel, site=site, batch=batch, dtype=dname, gelu=gelu,
                        max_abs_err=max_abs, worst_rel_l2=worst_rel, ok=ok, ms=ms,
-                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, tile=tile)
+                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, tile=tile, passes=passes)
             print(json.dumps(row))
             rows.append(row)
             if not ok:
@@ -249,13 +270,14 @@ def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
                 rel = rel_l2(got, want)
                 ms = time_ms(torch, run, iters)
                 plain_ms = time_ms(torch, plain, iters)
+                passes = pass_times(torch, run) if dtype == torch.bfloat16 else None
             b_ms, b_by = bound(batch, side * side, c, p, dname)
             row = dict(kernel=kernel, site=site, batch=batch, dtype=dname, gelu=gelu,
                        max_abs_err=float(err.max()), rel_l2=rel, ok=ok, ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by)
-            if kernel == "K3" and dtype == torch.bfloat16:
-                row["plan"] = bc.k3_plan(batch * side * side, packed.w1.shape[0],
-                                         packed.w2.shape[1])._asdict()
+                       bound_ms=b_ms, bound_by=b_by, passes=passes)
+            if dtype == torch.bfloat16:
+                row["plan"] = bc.fwd_plan(batch * side * side, parts[0], sum(parts[1:]),
+                                          packed.w1.shape[1], packed.w2.shape[1])._asdict()
             print(json.dumps(row))
             rows.append(row)
             if not ok:
@@ -266,7 +288,7 @@ def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
 
 # kernel names by class; the block-core classes come first ("sm90" also
 # names cuDNN's kernels)
-_CLASSES = (("block_core fwd (K1/K3)", ("block_core_kernel", "bc2_fwd_sm90")),
+_CLASSES = (("block_core fwd (K1/K3)", ("block_core_kernel", "bc2_fwd_sm90", "bc_fwd_")),
             ("block_core bwd (K2/K4)", ("bwd_rows_kernel", "bwd_weights_kernel",
                                         "bwd_reduce_kernel", "bc2_bwd_sm90")),
             ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "depthwise", "implicit", "fprop",
@@ -677,8 +699,8 @@ def main(argv=None):
 
     kernels = []
     for name, src_fn, line, src, table in (
-            ("K1", "block_core_fwd", 205, "block_core.cu", rows),
-            ("K2", "block_core_bwd", 262, "block_core_bwd.cu", bwd_rows),
+            ("K1", "block_core2_fwd_sm90", 205, "block_core2_fwd_sm90.cu", rows),
+            ("K2", "block_core2_bwd_sm90", 262, "block_core2_bwd_sm90.cu", bwd_rows),
             ("K3", "block_core2_fwd_sm90", 553, "block_core2_fwd_sm90.cu", rows),
             ("K4", "block_core2_bwd_sm90", 598, "block_core2_bwd_sm90.cu", bwd_rows)):
         main = [r for r in table if r["kernel"] == name and r["batch"] == 16]

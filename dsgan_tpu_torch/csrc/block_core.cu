@@ -1,77 +1,46 @@
-// Fused ConvNeXt block core, forward: InstanceNorm-apply -> Linear(4C) ->
-// GELU -> Linear(P) -> + 1x1 shortcut, for NVIDIA Hopper (sm_90a).
+// Fused ConvNeXt block core, forward, f32 check build: InstanceNorm-apply
+// -> Linear(4C) -> GELU -> Linear(P) -> + 1x1 shortcut, for NVIDIA Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernels of dsgan_tpu/pallas/block_core.py:
+// Replaces the TPU kernels of dsgan_tpu/pallas/block_core.py in f32:
 //   K1  _fwd_kernel  / _fwd_impl   (one input:  block_core_fwd)
 //   K3  _fwd_kernel2 / _fwd2_impl  (two inputs: block_core2_fwd)
+// The bf16 forms of both run on the tensor cores in
+// block_core2_fwd_sm90.cu; these entries refuse bf16 (cudaErrorNotSupported).
 //
 // Per pixel row r of the NHWC activations flattened to (M, C):
 //
-//   out[r] = gelu(bf16((h[r] - mean[b]) * rsig[b]) @ W1 + b1) @ W2 + b2
-//            + x[r] @ Ws
+//   out[r] = gelu((h[r] - mean[b]) * rsig[b] @ W1 + b1) @ W2 + b2 + x[r] @ Ws
 //
 // The two-input form takes h and x as two channel parts (the decoder's
-// upsampled tensor and its skip). The parts are laid side by side in
-// shared memory, so the K-split GEMMs over [W1a; W1b] and [Wsa; Wsb] are
-// one GEMM over the packed weight, and the 2C-wide concat never exists in
-// device memory.
+// upsampled tensor and its skip), laid side by side in shared memory, so
+// the K-split GEMMs over [W1a; W1b] and [Wsa; Wsb] are one GEMM over the
+// packed weight.
 //
-// What bounds it on the H100: one call moves 2(2C + P) bytes a row plus
-// the weights once, and does 2(4C^2 + 4CP + CP) operations a row. At the
-// generator's shapes that is operations-bound from c3 on (C >= 128) and
-// bytes-bound at c1-c2, and in every case only if the 4C-wide hidden
-// stays on chip: written out and read back it would triple the bytes.
-// The design keeps it on chip: a block of 256 threads owns TM = 32 rows
-// (64-row tiles were tried and ran slower: 130 registers a thread halve
-// the resident warps); the hidden is made
-// HC columns at a time in shared memory (f32 GEMM result, then bias +
-// GELU into the storage type) and folded straight into a (TM x P) f32
-// accumulator that also lives in shared memory (128 KB at P = 1024 and
-// TM = 32: a register-resident accumulator of that width would not fit).
-// The bf16 GEMMs run on the tensor cores through WMMA 16x16x16 fragments
-// with f32 accumulation; weights stream from global memory (L2-resident)
-// straight into fragments, each B fragment feeding both row fragments.
-// Shared rows are padded by 16 bytes against bank conflicts. The f32
-// instantiation uses plain FMA loops: it exists to hold the kernel
-// tightly against its plain PyTorch version. No block depends on another:
-// the forward has no cross-block sums.
+// It exists to hold the structure of the bf16 kernels (the packed, per-part
+// padded weights, the parts side by side, the 4C-wide hidden made HC
+// columns at a time and never written to device memory) tightly against
+// the plain PyTorch version in f32, where a bf16 comparison would hide
+// faults in rounding: plain FMA loops, sums in f32. A block of 256 threads
+// owns TM = 32 rows; the hidden chunk and the (TM x P) accumulator live in
+// shared memory, every row padded by 16 bytes. Speed is not its purpose:
+// f32 has no use on the main path.
 //
 // Weights come packed by the wrapper (kernels/block_core.py): row-major,
 // (K, N) orientation, zero-padded to multiples of 16 in both dimensions,
 // the two input parts each padded on their own. Activations need no
 // alignment: rows are read element by element, so C = 3 works.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int TM = 32;  // rows per block
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
-// Shared rows are padded by 16 bytes: a WMMA fragment reads 16 rows, and
-// an unpadded power-of-two row stride would put them all on one bank.
-constexpr int FPAD = 4;  // floats
-
-template <typename T>
-__host__ __device__ constexpr int row_pad() { return 16 / (int)sizeof(T); }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+constexpr int FPAD = 4;  // floats of padding per shared row (16 bytes)
 
 __device__ __forceinline__ float gelu_tanh(float v) {
   const float k0 = 0.7978845608028654f;  // sqrt(2 / pi)
@@ -85,73 +54,37 @@ __device__ __forceinline__ float gelu_erf(float v) {
 
 // C (TM x N, f32, shared, ldc) = [C +] A (TM x K, shared, lda) @ B (K x N,
 // global, ldb). K and N are multiples of 16.
-template <typename T>
-__device__ void gemm_tile(const T* A, int lda, const T* B, int ldb, int K, int N, float* C,
-                          int ldc, bool accumulate) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    // each warp owns whole 16-wide column strips: one B fragment feeds all
-    // TM / 16 row fragments, and no two warps write one C element
-    for (int n0 = threadIdx.x / 32 * 16; n0 < N; n0 += NWARPS * 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TM / 16];
-#pragma unroll
-      for (int m = 0; m < TM / 16; ++m) {
-        if (accumulate)
-          wmma::load_matrix_sync(acc[m], C + m * 16 * ldc + n0, ldc, wmma::mem_row_major);
-        else
-          wmma::fill_fragment(acc[m], 0.0f);
-      }
-#pragma unroll 4
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, B + (size_t)k0 * ldb + n0, ldb);
-#pragma unroll
-        for (int m = 0; m < TM / 16; ++m) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + m * 16 * lda + k0, lda);
-          wmma::mma_sync(acc[m], a, b, acc[m]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < TM / 16; ++m)
-        wmma::store_matrix_sync(C + m * 16 * ldc + n0, acc[m], ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int i = threadIdx.x; i < TM * N; i += NTHREADS) {
-      const int r = i / N, n = i % N;
-      const T* a = A + r * lda;
-      float s = accumulate ? C[r * ldc + n] : 0.0f;
-      for (int k = 0; k < K; ++k) s = fmaf(to_f(a[k]), to_f(B[(size_t)k * ldb + n]), s);
-      C[r * ldc + n] = s;
-    }
+__device__ void gemm_tile(const float* A, int lda, const float* B, int ldb, int K, int N,
+                          float* C, int ldc, bool accumulate) {
+  for (int i = threadIdx.x; i < TM * N; i += NTHREADS) {
+    const int r = i / N, n = i % N;
+    const float* a = A + r * lda;
+    float s = accumulate ? C[r * ldc + n] : 0.0f;
+    for (int k = 0; k < K; ++k) s = fmaf(a[k], B[(size_t)k * ldb + n], s);
+    C[r * ldc + n] = s;
   }
 }
 
 struct Args {
-  const void *ha, *hb, *xa, *xb;
+  const float *ha, *hb, *xa, *xb;
   const float *mean_a, *rsig_a, *mean_b, *rsig_b;
-  const void *w1, *b1, *w2, *b2, *ws;
-  void* out;
+  const float *w1, *b1, *w2, *b2, *ws;
+  float* out;
   long long M;  // rows: batch * HW
   int HW, C1, C2, C1p, Cp, H4p, HC, P, Pp;
 };
 
-// Shared memory of one block, in bytes: the f32 accumulator and hidden
-// chunk, the input tile, and (bf16 only) the activated hidden.
-// kernels/block_core.py::smem_bytes mirrors this for its gate.
-template <typename T>
+// Shared memory of one block, in bytes: the accumulator, the hidden chunk
+// and the input tile. kernels/block_core.py::smem_bytes mirrors this.
 size_t smem_bytes(const Args& a) {
-  size_t s = sizeof(float) * TM * (a.Pp + FPAD + a.HC + FPAD) +
-             sizeof(T) * TM * (a.Cp + row_pad<T>());
-  if (sizeof(T) != sizeof(float)) s += sizeof(T) * TM * (a.HC + row_pad<T>());
-  return s;
+  return sizeof(float) * TM * (a.Pp + FPAD + a.HC + FPAD + a.Cp + FPAD);
 }
 
 // Fill in_s (TM x Cp, row stride ld) with the row tile of parts (pa, pb),
 // normalized with per-(image, channel) stats when mean_a is given; zero
 // the padding channels.
-template <typename T>
-__device__ void load_rows(T* in_s, int ld, const Args& a, long long row0, const T* pa,
-                          const T* pb, const float* mean_a, const float* rsig_a,
+__device__ void load_rows(float* in_s, int ld, const Args& a, long long row0, const float* pa,
+                          const float* pb, const float* mean_a, const float* rsig_a,
                           const float* mean_b, const float* rsig_b) {
   for (int i = threadIdx.x; i < TM * a.Cp; i += NTHREADS) {
     const int r = i / a.Cp, c = i % a.Cp;
@@ -160,119 +93,101 @@ __device__ void load_rows(T* in_s, int ld, const Args& a, long long row0, const 
     if (row < a.M) {
       const long long img = row / a.HW;
       if (c < a.C1) {
-        v = to_f(pa[row * a.C1 + c]);
+        v = pa[row * a.C1 + c];
         if (mean_a) v = (v - mean_a[img * a.C1 + c]) * rsig_a[img * a.C1 + c];
       } else if (c >= a.C1p && c < a.C1p + a.C2) {
         const int cb = c - a.C1p;
-        v = to_f(pb[row * a.C2 + cb]);
+        v = pb[row * a.C2 + cb];
         if (mean_b) v = (v - mean_b[img * a.C2 + cb]) * rsig_b[img * a.C2 + cb];
       }
     }
-    in_s[r * ld + c] = from_f<T>(v);
+    in_s[r * ld + c] = v;
   }
 }
 
-template <typename T, bool TANH>
+template <bool TANH>
 __global__ void __launch_bounds__(NTHREADS) block_core_kernel(Args a) {
-  constexpr bool F32 = std::is_same<T, float>::value;
-  const int ld_acc = a.Pp + FPAD, ld_hid = a.HC + FPAD, ld_in = a.Cp + row_pad<T>();
-  const int ld_g = F32 ? ld_hid : a.HC + row_pad<T>();
+  const int ld_acc = a.Pp + FPAD, ld_hid = a.HC + FPAD, ld_in = a.Cp + FPAD;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* acc_s = reinterpret_cast<float*>(smem);            // TM x Pp
-  float* hid_s = acc_s + TM * ld_acc;                        // TM x HC
-  T* in_s = reinterpret_cast<T*>(hid_s + TM * ld_hid);       // TM x Cp
-  // the activated hidden in the storage type; f32 rewrites hid_s in place
-  T* g_s = F32 ? reinterpret_cast<T*>(hid_s) : in_s + TM * ld_in;  // TM x HC
+  float* acc_s = reinterpret_cast<float*>(smem);  // TM x Pp
+  float* hid_s = acc_s + TM * ld_acc;              // TM x HC: the hidden, then its GELU
+  float* in_s = hid_s + TM * ld_hid;               // TM x Cp
 
   const long long row0 = (long long)blockIdx.x * TM;
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* b1 = static_cast<const T*>(a.b1);
-  const T* w2 = static_cast<const T*>(a.w2);
-  const T* b2 = static_cast<const T*>(a.b2);
 
   // shortcut: acc = x @ Ws + b2
-  load_rows<T>(in_s, ld_in, a, row0, static_cast<const T*>(a.xa),
-                   static_cast<const T*>(a.xb), nullptr, nullptr, nullptr, nullptr);
+  load_rows(in_s, ld_in, a, row0, a.xa, a.xb, nullptr, nullptr, nullptr, nullptr);
   for (int i = threadIdx.x; i < TM * a.Pp; i += NTHREADS) {
     const int r = i / a.Pp, n = i % a.Pp;
-    acc_s[r * ld_acc + n] = n < a.P ? to_f(b2[n]) : 0.0f;
+    acc_s[r * ld_acc + n] = n < a.P ? a.b2[n] : 0.0f;
   }
   __syncthreads();
-  gemm_tile<T>(in_s, ld_in, static_cast<const T*>(a.ws), a.Pp, a.Cp, a.Pp, acc_s, ld_acc,
-                   true);
+  gemm_tile(in_s, ld_in, a.ws, a.Pp, a.Cp, a.Pp, acc_s, ld_acc, true);
   __syncthreads();
 
-  // normalized input, rounded once to the storage type
-  load_rows<T>(in_s, ld_in, a, row0, static_cast<const T*>(a.ha),
-                   static_cast<const T*>(a.hb), a.mean_a, a.rsig_a, a.mean_b, a.rsig_b);
+  // normalized input
+  load_rows(in_s, ld_in, a, row0, a.ha, a.hb, a.mean_a, a.rsig_a, a.mean_b, a.rsig_b);
   __syncthreads();
 
   for (int j0 = 0; j0 < a.H4p; j0 += a.HC) {
-    gemm_tile<T>(in_s, ld_in, w1 + j0, a.H4p, a.Cp, a.HC, hid_s, ld_hid, false);
+    gemm_tile(in_s, ld_in, a.w1 + j0, a.H4p, a.Cp, a.HC, hid_s, ld_hid, false);
     __syncthreads();
     for (int i = threadIdx.x; i < TM * a.HC; i += NTHREADS) {
       const int r = i / a.HC, c = i % a.HC;
-      const float v = hid_s[r * ld_hid + c] + to_f(b1[j0 + c]);
-      // tanh flavour on the hidden rounded to the storage type; erf on f32
-      const float g = TANH ? gelu_tanh(to_f(from_f<T>(v))) : gelu_erf(v);
-      g_s[r * ld_g + c] = from_f<T>(g);
+      const float v = hid_s[r * ld_hid + c] + a.b1[j0 + c];
+      hid_s[r * ld_hid + c] = TANH ? gelu_tanh(v) : gelu_erf(v);
     }
     __syncthreads();
-    gemm_tile<T>(g_s, ld_g, w2 + (size_t)j0 * a.Pp, a.Pp, a.HC, a.Pp, acc_s, ld_acc, true);
+    gemm_tile(hid_s, ld_hid, a.w2 + (size_t)j0 * a.Pp, a.Pp, a.HC, a.Pp, acc_s, ld_acc, true);
     __syncthreads();
   }
 
-  T* out = static_cast<T*>(a.out);
   for (int i = threadIdx.x; i < TM * a.P; i += NTHREADS) {
     const int r = i / a.P, n = i % a.P;
     const long long row = row0 + r;
-    if (row < a.M) out[row * a.P + n] = from_f<T>(acc_s[r * ld_acc + n]);
+    if (row < a.M) a.out[row * a.P + n] = acc_s[r * ld_acc + n];
   }
 }
 
-template <typename T, bool TANH>
-int launch_typed(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(a);
-  cudaError_t err = cudaFuncSetAttribute(block_core_kernel<T, TANH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+int launch(int bf16_storage, int tanh_gelu, const Args& a, void* stream) {
+  if (bf16_storage) return (int)cudaErrorNotSupported;  // block_core2_fwd_sm90.cu
+  auto kernel = tanh_gelu ? block_core_kernel<true> : block_core_kernel<false>;
+  const size_t smem = smem_bytes(a);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (a.M + TM - 1) / TM;
-  block_core_kernel<T, TANH><<<(unsigned)blocks, NTHREADS, smem, stream>>>(a);
+  kernel<<<(unsigned)blocks, NTHREADS, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
-}
-
-int launch(int bf16_storage, int tanh_gelu, const Args& a, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_storage)
-    return tanh_gelu ? launch_typed<bf16, true>(a, s) : launch_typed<bf16, false>(a, s);
-  return tanh_gelu ? launch_typed<float, true>(a, s) : launch_typed<float, false>(a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1. h, x: (M, C) rows; mean, rsig: (B, C) f32. Returns
-// cudaGetLastError() after the launch.
+// K1 in f32 (bf16_storage must be 0). h, x: (M, C) rows; mean, rsig: (B,
+// C) f32. Returns cudaGetLastError() after the launch.
 int block_core_fwd(int bf16_storage, int tanh_gelu, const void* h, const void* x,
                    const float* mean, const float* rsig, const void* w1, const void* b1,
                    const void* w2, const void* b2, const void* ws, void* out, long long M,
                    int HW, int C, int Cp, int H4p, int HC, int P, int Pp, void* stream) {
-  Args a{h, nullptr, x, nullptr, mean, rsig, nullptr, nullptr, w1, b1, w2, b2, ws, out,
-         M, HW, C, 0, Cp, Cp, H4p, HC, P, Pp};
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  Args a{f(h), nullptr, f(x), nullptr, mean, rsig, nullptr, nullptr, f(w1), f(b1), f(w2), f(b2),
+         f(ws), static_cast<float*>(out), M, HW, C, 0, Cp, Cp, H4p, HC, P, Pp};
   return launch(bf16_storage, tanh_gelu, a, stream);
 }
 
-// K3. Parts a (C1 channels) and b (C2 channels); the packed weights hold
-// part a in rows [0, C1) and part b in rows [C1p, C1p + C2).
+// K3 in f32. Parts a (C1 channels) and b (C2 channels); the packed weights
+// hold part a in rows [0, C1) and part b in rows [C1p, C1p + C2).
 int block_core2_fwd(int bf16_storage, int tanh_gelu, const void* ha, const void* hb,
                     const void* xa, const void* xb, const float* mean_a, const float* rsig_a,
                     const float* mean_b, const float* rsig_b, const void* w1, const void* b1,
                     const void* w2, const void* b2, const void* ws, void* out, long long M,
                     int HW, int C1, int C2, int C1p, int Cp, int H4p, int HC, int P, int Pp,
                     void* stream) {
-  Args a{ha, hb, xa, xb, mean_a, rsig_a, mean_b, rsig_b, w1, b1, w2, b2, ws, out,
-         M, HW, C1, C2, C1p, Cp, H4p, HC, P, Pp};
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  Args a{f(ha), f(hb), f(xa), f(xb), mean_a, rsig_a, mean_b, rsig_b, f(w1), f(b1), f(w2), f(b2),
+         f(ws), static_cast<float*>(out), M, HW, C1, C2, C1p, Cp, H4p, HC, P, Pp};
   return launch(bf16_storage, tanh_gelu, a, stream);
 }
 

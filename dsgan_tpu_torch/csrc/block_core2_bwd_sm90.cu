@@ -1,10 +1,13 @@
-// Fused two-input ConvNeXt block core, backward, bf16, on Hopper's tensor
-// cores through wgmma, fed by TMA (sm_90a).
+// Fused ConvNeXt block core, backward, bf16, on Hopper's tensor cores
+// through wgmma, fed by TMA (sm_90a): the one-input form (K2) and the
+// two-input form (K4).
 //
-// Replaces the TPU kernel K4 of dsgan_tpu/pallas/block_core.py:
-// _bwd_kernel2 (:431-530) / _bwd2_impl (pallas_call at :598). Given the
-// forward's parts (h, x) = (h_a | h_b, x_a | x_b), their InstanceNorm
-// statistics and the cotangent g of the output, per pixel row, with
+// Replaces the TPU kernels of dsgan_tpu/pallas/block_core.py:
+//   K2  _bwd_kernel  (:116-190) / _bwd_impl  (pallas_call at :262)
+//   K4  _bwd_kernel2 (:431-530) / _bwd2_impl (pallas_call at :598)
+// Given the forward's parts (h, x) = (h_a | h_b, x_a | x_b) (the one-input
+// form: C2 = 0, part b's pointers null), their InstanceNorm statistics and
+// the cotangent g of the output, per pixel row, with
 //   a   = bf16((h - mean) * rsig)         the normalized input
 //   h1  = a @ W1 + b1                     the hidden, f32, recomputed
 //   ag  = bf16(gelu(h1)),  dg1 = (g @ W2^T) * gelu'(h1)
@@ -21,7 +24,9 @@
 // What bounds it: 2(12C^2 + 10CP) operations a row against 2(4C + P)
 // bytes a row in and out, operations-bound at every decoder site: 0.591 ms
 // at batch 16 at each of uc1-uc4 (C = 1024, 512, 256, 128; P = C / 2;
-// 16,384 to 1,048,576 rows; 584 GFLOP at 989 TFLOP/s).
+// 16,384 to 1,048,576 rows; 584 GFLOP at 989 TFLOP/s), and at c2-c5
+// (0.070 ms each); c1 (C = 3, P = 64, a million rows) is bytes-bound
+// (0.048 ms).
 //
 // Design: the backward as GEMM-shaped passes, none of whose tiles depends
 // on C, each block two consumer warpgroups of 64 rows (wgmma m64, f32
@@ -52,6 +57,16 @@
 // B operand of R1 and R2 is K-major: W1^T from the transposed pack, W2 and
 // W1 as packed, so no tile is transposed on the card. No atomics: every
 // sum is taken in one fixed order and runs repeat bit for bit.
+//
+// One input of C <= 4 channels (c1: C = 3, 4C = 12) takes a narrow row
+// pass in place of P, R1 and R2: a 64-wide K step and a 128-wide hidden
+// tile would be four to eight times padding there, and R1's epilogue is
+// what bounds it. One thread a row computes the 16-wide hidden, da, dg1, dn
+// and dx with FMAs against weights in shared memory (f32, read by
+// broadcast), writes a, x, ag and dg1 to the scratch and dn, dx out, and
+// the block (one 128-row tile of one image) sums its rows' db1, S1, S2 and
+// db2 partials in a fixed order; the weight pass and the reduce follow as
+// for every other shape.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,6 +84,8 @@ constexpr int SMS = 132;         // the H100's SMs: the weight pass splits to fi
 constexpr int STAGES = 4;        // ring depth of every pass
 constexpr int RED_CHUNK = 64;    // terms per first-level sum of the reduce
 constexpr int THREADS = 384;     // two consumer warpgroups and the producer's
+constexpr int NARROW_C = 4;      // the narrow row pass: one input of at most 4 channels,
+constexpr int NARROW_H = 16;     // so one 16-wide hidden tile; one thread a row
 
 struct Args {
   const bf16 *ha, *hb, *xa, *xb, *g;
@@ -89,6 +106,7 @@ struct WJob {
 struct Plan {
   int timg, tiles;  // 128-row tiles per image, in all
   int gcopy;        // g is padded into scratch (P % 8 != 0)
+  int narrow;       // the narrow row pass (C2 = 0, C1 <= NARROW_C)
   size_t off_a, off_x, off_g, off_ag, off_dg, off_db1, off_db2, off_s1, off_s2, off_tmp, total;
   WJob jobs[3];  // dW1, dW2, dWs
 };
@@ -107,6 +125,7 @@ Plan make_plan(const Args& a) {
   pl.timg = (a.HW + 127) / 128;
   pl.tiles = a.B * pl.timg;
   pl.gcopy = a.P % 8 != 0;
+  pl.narrow = a.C2 == 0 && a.C1 <= NARROW_C;  // kernels/block_core.py::narrow_route
   size_t off = 0;
   auto take = [&](size_t bytes) {
     const size_t at = off;
@@ -285,17 +304,24 @@ struct PrepArgs {
   int timg;
 };
 
-// One block per 128-row tile of one image: a and x side by side, g padded
-// (if asked), the tile's column sums of g. Dynamic shared memory: 8 x Pp floats.
+// Blocks (x, y): the 128-row tile x of one image, and the y-th of gridDim.y
+// slices of its columns (more than one where there are few tiles): a and x
+// side by side, g padded (if asked), the tile's column sums of g. Dynamic
+// shared memory: 8 x Pp floats.
 __global__ void __launch_bounds__(256) bc2_bwd_sm90_prep(const PrepArgs p) {
   extern __shared__ float prep_smem[];
   const Args& a = p.a;
   const int img = blockIdx.x / p.timg, t0 = blockIdx.x % p.timg * 128;
   const int nrows = min(128, a.HW - t0);
   const long long row0 = (long long)img * a.HW + t0;
-  const int chunks = a.Cp / 8;
-  for (int item = threadIdx.x; item < nrows * chunks; item += 256) {
-    const int r = item / chunks, c0 = item % chunks * 8;
+  // this block's 8-wide chunks of a and x, and column pairs of g
+  const int chunks = a.Cp / 8, pairs = a.Pp / 2, ys = gridDim.y;
+  const int ch0 = blockIdx.y * ((chunks + ys - 1) / ys);
+  const int nch = max(0, min(chunks - ch0, (chunks + ys - 1) / ys));
+  const int n_lo = 2 * (blockIdx.y * ((pairs + ys - 1) / ys));
+  const int n_hi = min(a.Pp, n_lo + 2 * ((pairs + ys - 1) / ys));
+  for (int item = threadIdx.x; item < nrows * nch; item += 256) {
+    const int r = item / nch, c0 = (ch0 + item % nch) * 8;
     const long long row = row0 + r;
     float hv[8], xv[8];
 #pragma unroll
@@ -350,12 +376,12 @@ __global__ void __launch_bounds__(256) bc2_bwd_sm90_prep(const PrepArgs p) {
   // groups in order; and g padded where asked
   float* red = reinterpret_cast<float*>(prep_smem);  // 8 x Pp
   const int grp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool pairs = a.P % 2 == 0;
-  for (int n = 2 * lane; n < a.Pp; n += 64) {
+  const bool even = a.P % 2 == 0;
+  for (int n = n_lo + 2 * lane; n < n_hi; n += 64) {
     float s0 = 0.0f, s1 = 0.0f;
     for (int r = grp; r < nrows; r += 8) {
       const bf16* src = a.g + (row0 + r) * a.P + n;
-      if (pairs && n < a.P) {
+      if (even && n < a.P) {
         const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(src);
         s0 += __low2float(v), s1 += __high2float(v);
       } else {
@@ -367,15 +393,16 @@ __global__ void __launch_bounds__(256) bc2_bwd_sm90_prep(const PrepArgs p) {
     red[grp * a.Pp + n + 1] = s1;
   }
   __syncthreads();
-  for (int n = threadIdx.x; n < a.Pp; n += 256) {
+  for (int n = n_lo + threadIdx.x; n < n_hi; n += 256) {
     float s = 0.0f;
 #pragma unroll
     for (int k = 0; k < 8; ++k) s += red[k * a.Pp + n];
     p.part_db2[(size_t)blockIdx.x * a.Pp + n] = s;
   }
   if (p.gp) {
-    for (int i = threadIdx.x; i < nrows * a.Pp; i += 256) {
-      const int r = i / a.Pp, n = i % a.Pp;
+    const int w = n_hi - n_lo;
+    for (int i = threadIdx.x; i < nrows * w; i += 256) {
+      const int r = i / w, n = n_lo + i % w;
       p.gp[(row0 + r) * a.Pp + n] = n < a.P ? a.g[(row0 + r) * a.P + n] : __float2bfloat16_rn(0.0f);
     }
   }
@@ -577,6 +604,176 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// ------------------------------------------------------ narrow row pass
+
+__host__ __device__ inline int narrow_smem_bytes(int pp) {
+  return 4 * (NARROW_C * NARROW_H + NARROW_H + (NARROW_H + NARROW_C) * pp + 4 * pp + 4 * 32);
+}
+
+// In place of P, R1 and R2 where C2 = 0 and C1 <= NARROW_C: block b takes
+// the 128-row tiles b, b + gridDim.x, ..., one thread a row.
+template <bool TANH>
+__global__ void __launch_bounds__(128) bc2_bwd_sm90_narrow(const PrepArgs p, const RowArgs r) {
+  extern __shared__ __align__(16) float nsm[];
+  const Args& a = p.a;
+  float* w1 = nsm;                       // NARROW_C x 16
+  float* b1 = w1 + NARROW_C * NARROW_H;  // 16
+  float* w2 = b1 + NARROW_H;             // 16 x Pp
+  float* ws = w2 + NARROW_H * a.Pp;      // NARROW_C x Pp
+  float* red = ws + NARROW_C * a.Pp;     // 4 x Pp: db2 by row group
+  float* wred = red + 4 * a.Pp;          // 4 warps x 32: db1, S1, S2
+  for (int i = threadIdx.x; i < NARROW_C * NARROW_H; i += 128)
+    w1[i] = i / NARROW_H < a.C1 ? __bfloat162float(a.w1[i]) : 0.0f;
+  for (int i = threadIdx.x; i < NARROW_H; i += 128) b1[i] = __bfloat162float(a.b1[i]);
+  for (int i = threadIdx.x; i < (NARROW_H + NARROW_C) * a.Pp; i += 128) {
+    const int row = i / a.Pp;
+    w2[i] = row < NARROW_H ? __bfloat162float(a.w2[i])
+            : row - NARROW_H < a.C1 ? __bfloat162float(a.ws[i - NARROW_H * a.Pp]) : 0.0f;
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  const bool vec_g = a.P % 8 == 0;
+  for (int tile = blockIdx.x; tile < r.tiles; tile += gridDim.x) {
+    const int img = tile / r.timg, t0 = tile % r.timg * 128;
+    const int nrows = min(128, a.HW - t0);
+    const long long row = (long long)img * a.HW + t0 + t;
+    const bool ok = t < nrows;
+    float av[NARROW_C], hm[NARROW_C], xv[NARROW_C];
+#pragma unroll
+    for (int c = 0; c < NARROW_C; ++c) {
+      av[c] = 0.0f, hm[c] = 0.0f, xv[c] = 0.0f;
+      if (ok && c < a.C1) {
+        const size_t s = (size_t)img * a.C1 + c;
+        hm[c] = __bfloat162float(a.ha[row * a.C1 + c]) - a.mean_a[s];
+        av[c] = __bfloat162float(__float2bfloat16_rn(hm[c] * a.rsig_a[s]));
+        xv[c] = __bfloat162float(a.xa[row * a.C1 + c]);
+      }
+    }
+    // the hidden, recomputed in f32; ag and gelu'
+    float ag[NARROW_H], dgelu[NARROW_H];
+#pragma unroll
+    for (int j = 0; j < NARROW_H; ++j) {
+      float v = 0.0f;
+#pragma unroll
+      for (int c = 0; c < NARROW_C; ++c) v = fmaf(av[c], w1[c * NARROW_H + j], v);
+      ag[j] = gelu_parts(v + b1[j], &dgelu[j], TANH);
+    }
+    // da = g @ W2^T and dx = g @ Ws^T, 8 columns of g at a time; g padded
+    // into the scratch where the weight pass cannot read it as it is
+    float da[NARROW_H], dx[NARROW_C];
+#pragma unroll
+    for (int j = 0; j < NARROW_H; ++j) da[j] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NARROW_C; ++c) dx[c] = 0.0f;
+    for (int n0 = 0; n0 < a.Pp; n0 += 8) {
+      float gv[8];
+      const bf16* src = a.g + row * a.P + n0;
+      if (ok && vec_g && n0 < a.P) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(src);
+        const bf16* g8 = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) gv[e] = __bfloat162float(g8[e]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) gv[e] = ok && n0 + e < a.P ? __bfloat162float(src[e]) : 0.0f;
+      }
+      if (p.gp && ok) {
+        uint4 o;
+        o.x = pack_bf16(gv[0], gv[1]), o.y = pack_bf16(gv[2], gv[3]);
+        o.z = pack_bf16(gv[4], gv[5]), o.w = pack_bf16(gv[6], gv[7]);
+        *reinterpret_cast<uint4*>(p.gp + row * a.Pp + n0) = o;
+      }
+      auto dot8 = [&](const float* wrow) {
+        const float4 lo = *reinterpret_cast<const float4*>(wrow + n0);
+        const float4 hi = *reinterpret_cast<const float4*>(wrow + n0 + 4);
+        return gv[0] * lo.x + gv[1] * lo.y + gv[2] * lo.z + gv[3] * lo.w + gv[4] * hi.x +
+               gv[5] * hi.y + gv[6] * hi.z + gv[7] * hi.w;
+      };
+#pragma unroll
+      for (int j = 0; j < NARROW_H; ++j) da[j] += dot8(w2 + j * a.Pp);
+#pragma unroll
+      for (int c = 0; c < NARROW_C; ++c) dx[c] += dot8(ws + c * a.Pp);
+    }
+    // dg1 (f32 for db1, bf16 for the products), dn = bf16(dg1) @ W1^T
+    float dg1[NARROW_H], dn[NARROW_C];
+#pragma unroll
+    for (int c = 0; c < NARROW_C; ++c) dn[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NARROW_H; ++j) {
+      dg1[j] = ok ? da[j] * dgelu[j] : 0.0f;
+      const float dgt = __bfloat162float(__float2bfloat16_rn(dg1[j]));
+#pragma unroll
+      for (int c = 0; c < NARROW_C; ++c) dn[c] = fmaf(dgt, w1[c * NARROW_H + j], dn[c]);
+    }
+    if (ok) {
+#pragma unroll
+      for (int c = 0; c < NARROW_C; ++c) {
+        if (c < a.C1) {
+          a.dna[row * a.C1 + c] = __float2bfloat16_rn(dn[c]);
+          a.dxa[row * a.C1 + c] = __float2bfloat16_rn(dx[c]);
+        }
+      }
+      // the scratch rows the weight pass reads: a, x (Cp = 16), ag, dg1 (H4p = 16)
+      auto put16 = [&](bf16* dst, const float* v, int n) {
+        uint32_t w[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          w[e] = pack_bf16(2 * e < n ? v[2 * e] : 0.0f, 2 * e + 1 < n ? v[2 * e + 1] : 0.0f);
+        uint4* d = reinterpret_cast<uint4*>(dst + row * 16);
+        d[0] = make_uint4(w[0], w[1], w[2], w[3]);
+        d[1] = make_uint4(w[4], w[5], w[6], w[7]);
+      };
+      put16(p.as, av, NARROW_C);
+      put16(p.xs, xv, NARROW_C);
+      put16(r.ag, ag, NARROW_H);
+      put16(r.dg, dg1, NARROW_H);
+    }
+    // db1, S1, S2 over the tile's rows: the warp by shuffles, the four
+    // warps in turn
+    float v[32];
+#pragma unroll
+    for (int j = 0; j < NARROW_H; ++j) v[j] = dg1[j];
+#pragma unroll
+    for (int c = 0; c < NARROW_C; ++c) {
+      const bool real = ok && c < a.C1;
+      v[NARROW_H + c] = real ? dn[c] : 0.0f;
+      v[NARROW_H + NARROW_C + c] = real ? dn[c] * hm[c] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < NARROW_H + 2 * NARROW_C; ++k) {
+#pragma unroll
+      for (int o = 16; o > 0; o /= 2) v[k] += __shfl_xor_sync(0xffffffffu, v[k], o);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int k = 0; k < NARROW_H + 2 * NARROW_C; ++k) wred[warp * 32 + k] = v[k];
+    }
+    // db2: 4 groups of rows (r % 4) by column pairs, then the groups in order
+    for (int n = 2 * lane; n < a.Pp; n += 64) {
+      float s0 = 0.0f, s1 = 0.0f;
+      for (int rr = warp; rr < nrows; rr += 4) {
+        const bf16* src = a.g + ((long long)img * a.HW + t0 + rr) * a.P + n;
+        if (n < a.P) s0 += __bfloat162float(src[0]);
+        if (n + 1 < a.P) s1 += __bfloat162float(src[1]);
+      }
+      red[warp * a.Pp + n] = s0;
+      red[warp * a.Pp + n + 1] = s1;
+    }
+    __syncthreads();
+    if (t < NARROW_H + 2 * NARROW_C) {
+      const float s = wred[t] + wred[32 + t] + wred[64 + t] + wred[96 + t];
+      if (t < NARROW_H) r.part_db1[(size_t)tile * NARROW_H + t] = s;
+      else if (t < NARROW_H + NARROW_C) r.part_s1[(size_t)tile * a.Cp + (t - NARROW_H)] = s;
+      else r.part_s2[(size_t)tile * a.Cp + (t - NARROW_H - NARROW_C)] = s;
+    }
+    for (int n = t; n < a.Pp; n += 128)
+      p.part_db2[(size_t)tile * a.Pp + n] = red[n] + red[a.Pp + n] + red[2 * a.Pp + n] +
+                                            red[3 * a.Pp + n];
+    __syncthreads();
+  }
+}
+
 // ---------------------------------------------------------- weight pass
 
 struct WArgs {
@@ -697,7 +894,7 @@ int reduce(const float* in, int S, int in_ld, int off, int G, int L, float* out,
 
 template <typename K>
 int allow_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return sm90::allow_smem(reinterpret_cast<const void*>(kernel), bytes);
 }
 
 int run(int tanh_gelu, const Args& a, unsigned char* ws, cudaStream_t s) {
@@ -733,27 +930,36 @@ int run(int tanh_gelu, const Args& a, unsigned char* ws, cudaStream_t s) {
   if (!e) e = tensor_map(&dg64, dg, M, a.H4p, a.H4p, 64, 64);
   if (e) return e;
 
-  PrepArgs pa{a, as, xs, gp, part_db2, pl.timg};
-  if ((e = allow_smem(bc2_bwd_sm90_prep, 8 * 4 * a.Pp))) return e;
-  bc2_bwd_sm90_prep<<<pl.tiles, 256, 8 * 4 * a.Pp, s>>>(pa);
-  if ((e = (int)cudaGetLastError())) return e;
-
   // persistent grids: one block on each SM (or one per item where fewer)
-  int dev = 0, sms = 0;
-  if ((e = (int)cudaGetDevice(&dev))) return e;
-  if ((e = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))) return e;
+  int sms = 0;
+  if ((e = sm_count(&sms))) return e;
   auto grid = [&](long long items) { return (unsigned)(items < sms ? items : sms); };
 
+  PrepArgs pa{a, as, xs, gp, part_db2, pl.timg};
   const int nj = (a.H4p + 127) / 128, nx = (a.Cp + 127) / 128;
   RowArgs ra{a, ag, dg, part_db1, part_s1, part_s2, pl.timg, pl.tiles, nj, nx};
-  auto hidden = tanh_gelu ? bc2_bwd_sm90_hidden<true> : bc2_bwd_sm90_hidden<false>;
-  if ((e = allow_smem(hidden, ROW_SMEM))) return e;
-  hidden<<<grid((long long)pl.tiles * (nj + nx)), THREADS, ROW_SMEM, s>>>(a128, g128, w1t, w2,
-                                                                         wsm, ra);
-  if ((e = (int)cudaGetLastError())) return e;
-  if ((e = allow_smem(bc2_bwd_sm90_dn, ROW_SMEM))) return e;
-  bc2_bwd_sm90_dn<<<grid((long long)pl.tiles * nx), THREADS, ROW_SMEM, s>>>(dg128, w1, ra);
-  if ((e = (int)cudaGetLastError())) return e;
+  if (pl.narrow) {
+    auto narrow = tanh_gelu ? bc2_bwd_sm90_narrow<true> : bc2_bwd_sm90_narrow<false>;
+    const int smem = narrow_smem_bytes(a.Pp);
+    if ((e = allow_smem(narrow, smem))) return e;
+    const long long most = 16LL * sms;  // 128-thread blocks, many a SM
+    narrow<<<(unsigned)(pl.tiles < most ? pl.tiles : most), 128, smem, s>>>(pa, ra);
+    if ((e = (int)cudaGetLastError())) return e;
+  } else {
+    if ((e = allow_smem(bc2_bwd_sm90_prep, 8 * 4 * a.Pp))) return e;
+    // column slices where the tiles alone would not give every SM two blocks
+    const int ys = (int)(2LL * sms < pl.tiles ? 1 : min(8LL, (2LL * sms + pl.tiles - 1) / pl.tiles));
+    bc2_bwd_sm90_prep<<<dim3(pl.tiles, ys), 256, 8 * 4 * a.Pp, s>>>(pa);
+    if ((e = (int)cudaGetLastError())) return e;
+    auto hidden = tanh_gelu ? bc2_bwd_sm90_hidden<true> : bc2_bwd_sm90_hidden<false>;
+    if ((e = allow_smem(hidden, ROW_SMEM))) return e;
+    hidden<<<grid((long long)pl.tiles * (nj + nx)), THREADS, ROW_SMEM, s>>>(a128, g128, w1t, w2,
+                                                                           wsm, ra);
+    if ((e = (int)cudaGetLastError())) return e;
+    if ((e = allow_smem(bc2_bwd_sm90_dn, ROW_SMEM))) return e;
+    bc2_bwd_sm90_dn<<<grid((long long)pl.tiles * nx), THREADS, ROW_SMEM, s>>>(dg128, w1, ra);
+    if ((e = (int)cudaGetLastError())) return e;
+  }
 
   const CUtensorMap* srcs[3][2] = {{&a64, &dg64}, {&ag64, &g64}, {&x64, &g64}};
   for (int j = 0; j < 3; ++j) {

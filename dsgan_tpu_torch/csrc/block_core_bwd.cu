@@ -1,70 +1,54 @@
-// Fused ConvNeXt block core, backward, for NVIDIA Hopper (sm_90a).
+// Fused ConvNeXt block core, backward, f32 check build, for NVIDIA Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernels of dsgan_tpu/pallas/block_core.py:
+// Replaces the TPU kernels of dsgan_tpu/pallas/block_core.py in f32:
 //   K2  _bwd_kernel  / _bwd_impl   (one input:  block_core_bwd)
-//   K4  _bwd_kernel2 / _bwd2_impl  (two inputs: block_core2_bwd)
+//   K4  _bwd_kernel2 / _bwd2_impl  (two inputs: block_core_bwd with part b)
+// The bf16 forms of both run on the tensor cores in
+// block_core2_bwd_sm90.cu; this entry refuses bf16 (cudaErrorNotSupported).
 //
 // Given the forward's inputs and the cotangent g of its output, per pixel
 // row r of the NHWC activations flattened to (M, C), with
-//   a   = storage((h - mean) * rsig)      the normalized input
-//   h1  = a @ W1 + b1                     the hidden, f32, recomputed
-//   ag  = storage(gelu(h1)),  dg1 = (g @ W2^T) * gelu'(h1)
+//   a   = (h - mean) * rsig               the normalized input
+//   h1  = a @ W1 + b1                     the hidden, recomputed
+//   ag  = gelu(h1),  dg1 = (g @ W2^T) * gelu'(h1)
 // it computes
-//   dn  = storage(dg1) @ W1^T             dx  = g @ Ws^T
-//   dW1 = a^T storage(dg1)   db1 = sum dg1   dW2 = ag^T g   db2 = sum g
-//   dWs = x^T g              S1 = sum_HW dn  S2 = sum_HW dn * (h - mean)
+//   dn  = dg1 @ W1^T          dx  = g @ Ws^T
+//   dW1 = a^T dg1   db1 = sum dg1   dW2 = ag^T g   db2 = sum g
+//   dWs = x^T g     S1 = sum_HW dn  S2 = sum_HW dn * (h - mean)
 // with one tanh serving gelu and gelu' (the erf flavour: the exact
-// derivative), all sums in f32, dn and dx rounded once to the storage
-// type. The caller folds dn, S1 and S2 into the InstanceNorm cotangent.
-// The two-input form takes h and x as two channel parts, as the forward
-// does: the parts sit side by side in the shared tile, dn and dx come out
-// per part, dW1 and dWs are written straight into the rows of the concat
-// layout, and the 2C-wide concat never exists in device memory.
+// derivative). The caller folds dn, S1 and S2 into the InstanceNorm
+// cotangent. The two-input form takes h and x as two channel parts, as
+// the forward does: the parts sit side by side in the shared tile, dn and
+// dx come out per part, dW1 and dWs are written straight into the rows of
+// the concat layout.
 //
-// The TPU kernel accumulates the weight gradients and S1/S2 in VMEM
-// blocks carried across a sequential grid. Blocks on the H100 run in
-// parallel and in no order, so nothing here depends on the order:
+// It holds the structure of the bf16 kernels tightly against the plain
+// PyTorch version in f32: plain FMA loops, sums in f32. Blocks on the H100
+// run in parallel and in no order, so nothing depends on the order:
 //
 //   1. the row pass (one block per chunk of one image's rows, TM rows a
 //      tile, 256 threads): recomputes the hidden 128 columns at a time in
 //      shared memory as the forward does, emits dn and dx, writes ag and
-//      storage(dg1) to scratch in device memory, and adds the block's own
-//      partial sums of dg1, g, dn and dn * (h - mean) into its own row of
-//      a partial buffer (no atomics: each block owns its row);
+//      dg1 to scratch in device memory, and adds the block's own partial
+//      sums of dg1, g, dn and dn * (h - mean) into its own row of a
+//      partial buffer (no atomics: each block owns its row);
 //   2. the weight pass: dW1, dW2 and dWs as transposed products over the
 //      rows, each split over row chunks into f32 partials, 64 x 64 output
 //      tiles, 64 rows a step through shared memory;
 //   3. a fixed-order reduce of every partial buffer into its output.
 //
 // Every sum is taken in one fixed order, so runs repeat bit for bit.
-//
-// What bounds it on the H100: a call does 2(12C^2 + 10CP) operations a
-// row and must move 2(2C + P) bytes a row in and 4C out (bf16), so it is
-// operations-bound from C = 128 on. The scratch (ag and dg1: 16C bytes a
-// row each way) is what this first version pays over the bound in bytes;
-// the products run on the tensor cores through WMMA 16x16x16 bf16
-// fragments with f32 accumulation. The row pass reads the packed weights
-// transposed (W2^T, W1^T, Ws^T) as col_major B fragments straight from
-// global memory (L2-resident): no second packing. The f32 instantiation
-// uses plain FMA loops: it exists to hold the kernel tightly against its
-// plain PyTorch version.
-//
-// Shared memory: the (TM x Cp) f32 dn accumulator dominates (128 KB at
-// uc1, C = 1024, TM = 32), so the wrapper picks TM = 32 where the tile
-// fits 227 KB and TM = 16 where it does not (kernels/block_core.py::
-// bwd_smem_bytes mirrors row_smem_bytes here), and raises past that.
+// Shared memory: the (TM x Cp) dn accumulator and the tiles grow with C,
+// so the wrapper picks TM = 32 where the tile fits 227 KB and TM = 16
+// where it does not (c5 and uc1; kernels/block_core.py::bwd_smem_bytes
+// mirrors row_smem_bytes here), and raises past that.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
@@ -72,73 +56,27 @@ constexpr int FPAD = 4;  // floats of padding per shared row (16 bytes)
 constexpr int TILE = 64;  // weight pass: output tile edge and rows per step
 constexpr int TARGET_BLOCKS = 528;  // 4 per SM of the H100's 132
 
-template <typename T>
-__host__ __device__ constexpr int row_pad() { return 16 / (int)sizeof(T); }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
-
 // C (TM x N, f32, shared, ldc) = [C +] A (TM x K, shared, lda) @ op(B),
 // op(B) = B (K x N row-major, ldb) or, TRANS_B, the transpose of a
 // row-major (N x K) B. K and N are multiples of 16.
-template <typename T, int TM, bool TRANS_B>
-__device__ void gemm_tile(const T* A, int lda, const T* B, int ldb, int K, int N, float* C,
-                          int ldc, bool accumulate) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using BLayout = typename std::conditional<TRANS_B, wmma::col_major, wmma::row_major>::type;
-    for (int n0 = threadIdx.x / 32 * 16; n0 < N; n0 += NWARPS * 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TM / 16];
-#pragma unroll
-      for (int m = 0; m < TM / 16; ++m) {
-        if (accumulate)
-          wmma::load_matrix_sync(acc[m], C + m * 16 * ldc + n0, ldc, wmma::mem_row_major);
-        else
-          wmma::fill_fragment(acc[m], 0.0f);
-      }
-#pragma unroll 4
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-        if (TRANS_B)
-          wmma::load_matrix_sync(b, B + (size_t)n0 * ldb + k0, ldb);
-        else
-          wmma::load_matrix_sync(b, B + (size_t)k0 * ldb + n0, ldb);
-#pragma unroll
-        for (int m = 0; m < TM / 16; ++m) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + m * 16 * lda + k0, lda);
-          wmma::mma_sync(acc[m], a, b, acc[m]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < TM / 16; ++m)
-        wmma::store_matrix_sync(C + m * 16 * ldc + n0, acc[m], ldc, wmma::mem_row_major);
-    }
-  } else {
-    for (int i = threadIdx.x; i < TM * N; i += NTHREADS) {
-      const int r = i / N, n = i % N;
-      const T* a = A + r * lda;
-      float s = accumulate ? C[r * ldc + n] : 0.0f;
-      for (int k = 0; k < K; ++k) {
-        const T bv = TRANS_B ? B[(size_t)n * ldb + k] : B[(size_t)k * ldb + n];
-        s = fmaf(to_f(a[k]), to_f(bv), s);
-      }
-      C[r * ldc + n] = s;
-    }
+template <int TM, bool TRANS_B>
+__device__ void gemm_tile(const float* A, int lda, const float* B, int ldb, int K, int N,
+                          float* C, int ldc, bool accumulate) {
+  for (int i = threadIdx.x; i < TM * N; i += NTHREADS) {
+    const int r = i / N, n = i % N;
+    const float* a = A + r * lda;
+    float s = accumulate ? C[r * ldc + n] : 0.0f;
+    for (int k = 0; k < K; ++k)
+      s = fmaf(a[k], TRANS_B ? B[(size_t)n * ldb + k] : B[(size_t)k * ldb + n], s);
+    C[r * ldc + n] = s;
   }
 }
 
 struct Args {
-  const void *ha, *hb, *xa, *xb, *g;
+  const float *ha, *hb, *xa, *xb, *g;
   const float *mean_a, *rsig_a, *mean_b, *rsig_b;
-  const void *w1, *b1, *w2, *ws;  // packed, storage type
-  void *dna, *dnb, *dxa, *dxb;
+  const float *w1, *b1, *w2, *ws;  // packed
+  float *dna, *dnb, *dxa, *dxb;
   float *dw1, *db1, *dw2, *db2, *dws, *s1a, *s2a, *s1b, *s2b;
   int B, HW, C1, C2, C1p, Cp, H4, H4p, HC, P, Pp;
 };
@@ -147,22 +85,20 @@ struct Args {
 
 struct RowPass {
   Args a;
-  void* ag;      // (M, H4p) scratch, storage type
-  void* dg;      // (M, H4p) scratch, storage type
+  float* ag;     // (M, H4p) scratch
+  float* dg;     // (M, H4p) scratch
   float* part;   // (nblk, RS) f32: [db1 H4p | db2 Pp | S1 Cp | S2 Cp]
   int nch, tpc;  // chunks per image, tiles per chunk
 };
 
 __host__ __device__ inline int part_stride(const Args& a) { return a.H4p + a.Pp + 2 * a.Cp; }
 
-// Shared memory of one row-pass block, in bytes: the f32 dn accumulator,
-// hidden and da chunks, then in the storage type the normalized input,
-// the cotangent tile and the rounded dg1 chunk; every row padded by 16
-// bytes. kernels/block_core.py::bwd_smem_bytes mirrors this.
-template <typename T>
+// Shared memory of one row-pass block, in bytes: the dn accumulator, the
+// hidden and da chunks, the normalized input and the cotangent tile; every
+// row padded by 16 bytes. kernels/block_core.py::bwd_smem_bytes mirrors
+// this.
 size_t row_smem_bytes(int tm, const Args& a) {
-  return sizeof(float) * tm * ((a.Cp + FPAD) + 2 * (a.HC + FPAD)) +
-         sizeof(T) * tm * ((a.Cp + row_pad<T>()) + (a.Pp + row_pad<T>()) + (a.HC + row_pad<T>()));
+  return sizeof(float) * tm * ((a.Cp + FPAD) + 2 * (a.HC + FPAD) + (a.Cp + FPAD) + (a.Pp + FPAD));
 }
 
 __device__ __forceinline__ float gelu_tanh_parts(float v, float* dgelu) {
@@ -180,28 +116,21 @@ __device__ __forceinline__ float gelu_erf_parts(float v, float* dgelu) {
   return v * cdf;
 }
 
-template <typename T, int TM, bool TANH>
+template <int TM, bool TANH>
 __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
   const Args& a = rp.a;
   const int ld_acc = a.Cp + FPAD, ld_hid = a.HC + FPAD;
-  const int ld_in = a.Cp + row_pad<T>(), ld_g = a.Pp + row_pad<T>(), ld_dg = a.HC + row_pad<T>();
+  const int ld_in = a.Cp + FPAD, ld_g = a.Pp + FPAD;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* acc_s = reinterpret_cast<float*>(smem);          // TM x Cp: dx, then dn
-  float* hid_s = acc_s + TM * ld_acc;                      // TM x HC: h1
-  float* da_s = hid_s + TM * ld_hid;                       // TM x HC: da, then dg1
-  T* in_s = reinterpret_cast<T*>(da_s + TM * ld_hid);      // TM x Cp: a
-  T* g_s = in_s + TM * ld_in;                              // TM x Pp: g
-  T* dg_s = g_s + TM * ld_g;                               // TM x HC: storage(dg1)
+  float* acc_s = reinterpret_cast<float*>(smem);  // TM x Cp: dx, then dn
+  float* hid_s = acc_s + TM * ld_acc;              // TM x HC: h1
+  float* da_s = hid_s + TM * ld_hid;               // TM x HC: da, then dg1
+  float* in_s = da_s + TM * ld_hid;                // TM x Cp: a
+  float* g_s = in_s + TM * ld_in;                  // TM x Pp: g
 
-  const T* ha = static_cast<const T*>(a.ha);
-  const T* hb = static_cast<const T*>(a.hb);
-  const T* gp = static_cast<const T*>(a.g);
-  const T* w1 = static_cast<const T*>(a.w1);
-  const T* b1 = static_cast<const T*>(a.b1);
-  const T* w2 = static_cast<const T*>(a.w2);
-  const T* ws = static_cast<const T*>(a.ws);
-  T* ag_scr = static_cast<T*>(rp.ag);
-  T* dg_scr = static_cast<T*>(rp.dg);
+  const float *ha = a.ha, *hb = a.hb, *gp = a.g, *w1 = a.w1, *b1 = a.b1, *w2 = a.w2, *ws = a.ws;
+  float* ag_scr = rp.ag;
+  float* dg_scr = rp.dg;
 
   const int img = blockIdx.x / rp.nch, chunk = blockIdx.x % rp.nch;
   const int tiles = (a.HW + TM - 1) / TM;
@@ -219,7 +148,7 @@ __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
     const int nrows = min(TM, a.HW - p0);
     const long long row0 = (long long)img * a.HW + p0;
 
-    // normalized input (parts side by side), rounded once; cotangent tile
+    // normalized input (parts side by side); cotangent tile
     for (int i = threadIdx.x; i < TM * a.Cp; i += NTHREADS) {
       const int r = i / a.Cp, c = i % a.Cp;
       float v = 0.0f;
@@ -227,25 +156,25 @@ __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
         const long long row = row0 + r;
         if (c < a.C1) {
           const int s = img * a.C1 + c;
-          v = (to_f(ha[row * a.C1 + c]) - a.mean_a[s]) * a.rsig_a[s];
+          v = (ha[row * a.C1 + c] - a.mean_a[s]) * a.rsig_a[s];
         } else if (c >= a.C1p && c < a.C1p + a.C2) {
           const int cb = c - a.C1p, s = img * a.C2 + cb;
-          v = (to_f(hb[row * a.C2 + cb]) - a.mean_b[s]) * a.rsig_b[s];
+          v = (hb[row * a.C2 + cb] - a.mean_b[s]) * a.rsig_b[s];
         }
       }
-      in_s[r * ld_in + c] = from_f<T>(v);
+      in_s[r * ld_in + c] = v;
     }
     for (int i = threadIdx.x; i < TM * a.Pp; i += NTHREADS) {
       const int r = i / a.Pp, n = i % a.Pp;
-      g_s[r * ld_g + n] = (r < nrows && n < a.P) ? gp[(row0 + r) * a.P + n] : from_f<T>(0.0f);
+      g_s[r * ld_g + n] = (r < nrows && n < a.P) ? gp[(row0 + r) * a.P + n] : 0.0f;
     }
     __syncthreads();
 
     // shortcut branch: dx = g @ Ws^T; db2 += column sums of g
-    gemm_tile<T, TM, true>(g_s, ld_g, ws, a.Pp, a.Pp, a.Cp, acc_s, ld_acc, false);
+    gemm_tile<TM, true>(g_s, ld_g, ws, a.Pp, a.Pp, a.Cp, acc_s, ld_acc, false);
     for (int n = threadIdx.x; n < a.P; n += NTHREADS) {
       float s = 0.0f;
-      for (int r = 0; r < nrows; ++r) s += to_f(g_s[r * ld_g + n]);
+      for (int r = 0; r < nrows; ++r) s += g_s[r * ld_g + n];
       p_db2[n] += s;
     }
     __syncthreads();
@@ -253,33 +182,30 @@ __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
       const int r = i / a.Cp, c = i % a.Cp;
       if (r >= nrows) continue;
       const long long row = row0 + r;
-      const T v = from_f<T>(acc_s[r * ld_acc + c]);
+      const float v = acc_s[r * ld_acc + c];
       if (c < a.C1)
-        static_cast<T*>(a.dxa)[row * a.C1 + c] = v;
+        a.dxa[row * a.C1 + c] = v;
       else if (c >= a.C1p && c < a.C1p + a.C2)
-        static_cast<T*>(a.dxb)[row * a.C2 + (c - a.C1p)] = v;
+        a.dxb[row * a.C2 + (c - a.C1p)] = v;
     }
 
     for (int j0 = 0; j0 < a.H4p; j0 += a.HC) {
       // h1 = a @ W1[:, chunk] and da = g @ W2[chunk, :]^T, both f32
-      gemm_tile<T, TM, false>(in_s, ld_in, w1 + j0, a.H4p, a.Cp, a.HC, hid_s, ld_hid, false);
-      gemm_tile<T, TM, true>(g_s, ld_g, w2 + (size_t)j0 * a.Pp, a.Pp, a.Pp, a.HC, da_s, ld_hid,
-                             false);
+      gemm_tile<TM, false>(in_s, ld_in, w1 + j0, a.H4p, a.Cp, a.HC, hid_s, ld_hid, false);
+      gemm_tile<TM, true>(g_s, ld_g, w2 + (size_t)j0 * a.Pp, a.Pp, a.Pp, a.HC, da_s, ld_hid, false);
       __syncthreads();
       for (int i = threadIdx.x; i < TM * a.HC; i += NTHREADS) {
         const int r = i / a.HC, c = i % a.HC;
-        const float v = hid_s[r * ld_hid + c] + to_f(b1[j0 + c]);
+        const float v = hid_s[r * ld_hid + c] + b1[j0 + c];
         float dgelu;
         const float act = TANH ? gelu_tanh_parts(v, &dgelu) : gelu_erf_parts(v, &dgelu);
         // rows past the image end have g = 0, hence dg1 = 0
         const float dg1 = da_s[r * ld_hid + c] * dgelu;
-        const T dg1_t = from_f<T>(dg1);
         da_s[r * ld_hid + c] = dg1;
-        dg_s[r * ld_dg + c] = dg1_t;
         if (r < nrows) {
           const size_t o = (size_t)(row0 + r) * a.H4p + j0 + c;
-          ag_scr[o] = from_f<T>(act);
-          dg_scr[o] = dg1_t;
+          ag_scr[o] = act;
+          dg_scr[o] = dg1;
         }
       }
       __syncthreads();
@@ -288,8 +214,8 @@ __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
         for (int r = 0; r < nrows; ++r) s += da_s[r * ld_hid + c];
         p_db1[j0 + c] += s;
       }
-      // dn (+)= storage(dg1) @ W1[:, chunk]^T
-      gemm_tile<T, TM, true>(dg_s, ld_dg, w1 + j0, a.H4p, a.HC, a.Cp, acc_s, ld_acc, j0 > 0);
+      // dn (+)= dg1 @ W1[:, chunk]^T
+      gemm_tile<TM, true>(da_s, ld_hid, w1 + j0, a.H4p, a.HC, a.Cp, acc_s, ld_acc, j0 > 0);
       __syncthreads();
     }
 
@@ -298,14 +224,14 @@ __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
       const int r = i / a.Cp, c = i % a.Cp;
       if (r >= nrows) continue;
       const long long row = row0 + r;
-      const T v = from_f<T>(acc_s[r * ld_acc + c]);
+      const float v = acc_s[r * ld_acc + c];
       if (c < a.C1)
-        static_cast<T*>(a.dna)[row * a.C1 + c] = v;
+        a.dna[row * a.C1 + c] = v;
       else if (c >= a.C1p && c < a.C1p + a.C2)
-        static_cast<T*>(a.dnb)[row * a.C2 + (c - a.C1p)] = v;
+        a.dnb[row * a.C2 + (c - a.C1p)] = v;
     }
     for (int c = threadIdx.x; c < a.Cp; c += NTHREADS) {
-      const T* h;
+      const float* h;
       int cc, cw;
       float mean;
       if (c < a.C1) {
@@ -319,7 +245,7 @@ __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
       for (int r = 0; r < nrows; ++r) {
         const float dn = acc_s[r * ld_acc + c];
         s1 += dn;
-        s2 += dn * (to_f(h[(row0 + r) * cw + cc]) - mean);
+        s2 += dn * (h[(row0 + r) * cw + cc] - mean);
       }
       p_s1[c] += s1;
       p_s2[c] += s2;
@@ -331,10 +257,10 @@ __global__ void __launch_bounds__(NTHREADS) bwd_rows_kernel(RowPass rp) {
 // ------------------------------------------------------------- weight pass
 
 // One operand of a transposed product: rows of a (M, ld) matrix, columns
-// [0, ncols); with mean given, the normalized input storage((v - mean) * rsig)
-// with (image, column) statistics.
+// [0, ncols); with mean given, the normalized input (v - mean) * rsig with
+// (image, column) statistics.
 struct Src {
-  const void* p;
+  const float* p;
   int ld, ncols;
   const float *mean, *rsig;
 };
@@ -346,20 +272,18 @@ struct TnArgs {
   int HW, R, N, nsplit;
 };
 
-template <typename T>
-__device__ void load_step(T* dst, int ld, const Src& s, long long m0, long long m1, int c0,
+__device__ void load_step(float* dst, int ld, const Src& s, long long m0, long long m1, int c0,
                           int HW) {
-  const T* p = static_cast<const T*>(s.p);
   for (int i = threadIdx.x; i < TILE * TILE; i += NTHREADS) {
     const int mm = i / TILE, cc = i % TILE;
     const long long m = m0 + mm;
     const int c = c0 + cc;
-    T v = from_f<T>(0.0f);
+    float v = 0.0f;
     if (m < m1 && c < s.ncols) {
-      v = p[m * s.ld + c];
+      v = s.p[m * s.ld + c];
       if (s.mean) {
         const long long st = (m / HW) * s.ncols + c;
-        v = from_f<T>((to_f(v) - s.mean[st]) * s.rsig[st]);
+        v = (v - s.mean[st]) * s.rsig[st];
       }
     }
     dst[mm * ld + cc] = v;
@@ -368,16 +292,10 @@ __device__ void load_step(T* dst, int ld, const Src& s, long long m0, long long 
 
 // part[r, split, n] = sum over the split's rows m of A[m, r] * B[m, n],
 // for one 64 x 64 tile of (r, n).
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS) bwd_weights_kernel(TnArgs t) {
-  constexpr int LD = TILE + row_pad<T>();
-  constexpr int LDO = TILE + FPAD;
-  constexpr size_t IN_BYTES = 2 * sizeof(T) * TILE * LD, OUT_BYTES = sizeof(float) * TILE * LDO;
-  // the output tile reuses the input tiles' memory once the row loop is done
-  __shared__ __align__(128) unsigned char buf[IN_BYTES > OUT_BYTES ? IN_BYTES : OUT_BYTES];
-  T* a_s = reinterpret_cast<T*>(buf);
-  T* b_s = a_s + TILE * LD;
-  float* o_s = reinterpret_cast<float*>(buf);
+  constexpr int LD = TILE + FPAD;
+  __shared__ __align__(128) float a_s[TILE * LD];
+  __shared__ __align__(128) float b_s[TILE * LD];
 
   const int tiles_n = (t.N + TILE - 1) / TILE;
   const int r0 = blockIdx.x / tiles_n * TILE, n0 = blockIdx.x % tiles_n * TILE;
@@ -385,60 +303,26 @@ __global__ void __launch_bounds__(NTHREADS) bwd_weights_kernel(TnArgs t) {
   const long long m_begin = (long long)split * t.rps;
   const long long m_end = min(t.M, m_begin + t.rps);
 
-  if constexpr (std::is_same<T, bf16>::value) {
-    const int warp = threadIdx.x / 32;
-    const int rf = warp / 2, cf = (warp % 2) * 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-    wmma::fill_fragment(acc[0], 0.0f);
-    wmma::fill_fragment(acc[1], 0.0f);
-    for (long long m0 = m_begin; m0 < m_end; m0 += TILE) {
-      load_step<T>(a_s, LD, t.a, m0, m_end, r0, t.HW);
-      load_step<T>(b_s, LD, t.b, m0, m_end, n0, t.HW);
-      __syncthreads();
+  // each thread: column n = tid % 64, rows tid / 64 + 4q
+  const int n = threadIdx.x % TILE, rb = threadIdx.x / TILE;
+  float acc[TILE / 4];
 #pragma unroll
-      for (int k0 = 0; k0 < TILE; k0 += 16) {
-        // A^T: the (r, m) fragment of the row-major (m, r) tile is col_major
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, a_s + k0 * LD + rf * 16, LD);
+  for (int q = 0; q < TILE / 4; ++q) acc[q] = 0.0f;
+  for (long long m0 = m_begin; m0 < m_end; m0 += TILE) {
+    load_step(a_s, LD, t.a, m0, m_end, r0, t.HW);
+    load_step(b_s, LD, t.b, m0, m_end, n0, t.HW);
+    __syncthreads();
+    for (int mm = 0; mm < TILE; ++mm) {
+      const float bv = b_s[mm * LD + n];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, b_s + k0 * LD + (cf + j) * 16, LD);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();
+      for (int q = 0; q < TILE / 4; ++q) acc[q] = fmaf(a_s[mm * LD + rb + 4 * q], bv, acc[q]);
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(o_s + rf * 16 * LDO + (cf + j) * 16, acc[j], LDO,
-                              wmma::mem_row_major);
-  } else {
-    // each thread: column n = tid % 64, rows tid / 64 + 4q
-    const int n = threadIdx.x % TILE, rb = threadIdx.x / TILE;
-    float acc[TILE / 4];
-#pragma unroll
-    for (int q = 0; q < TILE / 4; ++q) acc[q] = 0.0f;
-    for (long long m0 = m_begin; m0 < m_end; m0 += TILE) {
-      load_step<T>(a_s, LD, t.a, m0, m_end, r0, t.HW);
-      load_step<T>(b_s, LD, t.b, m0, m_end, n0, t.HW);
-      __syncthreads();
-      for (int mm = 0; mm < TILE; ++mm) {
-        const float bv = to_f(b_s[mm * LD + n]);
-#pragma unroll
-        for (int q = 0; q < TILE / 4; ++q)
-          acc[q] = fmaf(to_f(a_s[mm * LD + rb + 4 * q]), bv, acc[q]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int q = 0; q < TILE / 4; ++q) o_s[(rb + 4 * q) * LDO + n] = acc[q];
+    __syncthreads();
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < TILE * TILE; i += NTHREADS) {
-    const int r = r0 + i / TILE, n = n0 + i % TILE;
-    if (r < t.R && n < t.N)
-      t.part[((size_t)r * t.nsplit + split) * t.N + n] = o_s[(i / TILE) * LDO + i % TILE];
+#pragma unroll
+  for (int q = 0; q < TILE / 4; ++q) {
+    const int r = r0 + rb + 4 * q, nn = n0 + n;
+    if (r < t.R && nn < t.N) t.part[((size_t)r * t.nsplit + split) * t.N + nn] = acc[q];
   }
 }
 
@@ -475,7 +359,7 @@ size_t align256(size_t n) { return (n + 255) / 256 * 256; }
 
 // The row pass's grid, the splits of each transposed product, and where
 // each buffer sits in the workspace (ws null: only the size is wanted).
-Plan make_plan(const Args& a, int tm, size_t itemsize, unsigned char* ws) {
+Plan make_plan(const Args& a, int tm, unsigned char* ws) {
   Plan pl{};
   const long long M = (long long)a.B * a.HW;
   const int tiles = (a.HW + tm - 1) / tm;
@@ -486,17 +370,20 @@ Plan make_plan(const Args& a, int tm, size_t itemsize, unsigned char* ws) {
   pl.nblk = a.B * pl.nch;
   size_t off = 0;
   pl.off_ag = off;
-  off = align256(off + (size_t)M * a.H4p * itemsize);
+  off = align256(off + (size_t)M * a.H4p * sizeof(float));
   pl.off_dg = off;
-  off = align256(off + (size_t)M * a.H4p * itemsize);
+  off = align256(off + (size_t)M * a.H4p * sizeof(float));
   pl.off_part = off;
   off = align256(off + sizeof(float) * (size_t)pl.nblk * part_stride(a));
 
   const Src g{a.g, a.P, a.P, nullptr, nullptr};
-  const Src ag{ws ? ws + pl.off_ag : nullptr, a.H4p, a.H4, nullptr, nullptr};
-  const Src dg{ws ? ws + pl.off_dg : nullptr, a.H4p, a.H4, nullptr, nullptr};
+  auto scratch = [&](size_t at) {
+    return ws ? reinterpret_cast<const float*>(ws + at) : nullptr;
+  };
+  const Src ag{scratch(pl.off_ag), a.H4p, a.H4, nullptr, nullptr};
+  const Src dg{scratch(pl.off_dg), a.H4p, a.H4, nullptr, nullptr};
   int n = 0;
-  // dW1 = a^T storage(dg1), dW2 = ag^T g, dWs = x^T g; each part of the
+  // dW1 = a^T dg1, dW2 = ag^T g, dWs = x^T g; each part of the
   // two-input form into its own rows of the concat layout
   pl.jobs[n++] = Job{Src{a.ha, a.C1, a.C1, a.mean_a, a.rsig_a}, dg, a.dw1, a.C1, a.H4};
   if (a.C2)
@@ -532,16 +419,16 @@ int reduce(const float* in, int S, int in_ld, int off, int G, int L, float* out,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int TM, bool TANH>
+template <int TM, bool TANH>
 int run_typed(const Args& a, unsigned char* ws, cudaStream_t s) {
-  Plan pl = make_plan(a, TM, sizeof(T), ws);
-  RowPass rp{a, ws + pl.off_ag, ws + pl.off_dg, reinterpret_cast<float*>(ws + pl.off_part),
-             pl.nch, pl.tpc};
-  const size_t smem = row_smem_bytes<T>(TM, a);
-  cudaError_t err = cudaFuncSetAttribute(bwd_rows_kernel<T, TM, TANH>,
+  Plan pl = make_plan(a, TM, ws);
+  RowPass rp{a, reinterpret_cast<float*>(ws + pl.off_ag), reinterpret_cast<float*>(ws + pl.off_dg),
+             reinterpret_cast<float*>(ws + pl.off_part), pl.nch, pl.tpc};
+  const size_t smem = row_smem_bytes(TM, a);
+  cudaError_t err = cudaFuncSetAttribute(bwd_rows_kernel<TM, TANH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_rows_kernel<T, TM, TANH><<<pl.nblk, NTHREADS, smem, s>>>(rp);
+  bwd_rows_kernel<TM, TANH><<<pl.nblk, NTHREADS, smem, s>>>(rp);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const long long M = (long long)a.B * a.HW;
@@ -550,7 +437,7 @@ int run_typed(const Args& a, unsigned char* ws, cudaStream_t s) {
     TnArgs t{jb.a, jb.b, reinterpret_cast<float*>(ws + jb.off), M, jb.rps, a.HW, jb.R, jb.N,
              jb.nsplit};
     dim3 grid(((jb.R + TILE - 1) / TILE) * ((jb.N + TILE - 1) / TILE), jb.nsplit);
-    bwd_weights_kernel<T><<<grid, NTHREADS, 0, s>>>(t);
+    bwd_weights_kernel<<<grid, NTHREADS, 0, s>>>(t);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     int e = reduce(t.part, jb.nsplit, jb.N, 0, jb.R, jb.N, jb.out, jb.N, s);
     if (e) return e;
@@ -569,34 +456,27 @@ int run_typed(const Args& a, unsigned char* ws, cudaStream_t s) {
   return e;
 }
 
-template <typename T>
-int run_tm(int tm, int tanh_gelu, const Args& a, unsigned char* ws, cudaStream_t s) {
-  if (tm == 32)
-    return tanh_gelu ? run_typed<T, 32, true>(a, ws, s) : run_typed<T, 32, false>(a, ws, s);
-  if (tm == 16)
-    return tanh_gelu ? run_typed<T, 16, true>(a, ws, s) : run_typed<T, 16, false>(a, ws, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 int run(int bf16_storage, int tanh_gelu, int tm, const Args& a, void* workspace,
         unsigned long long* workspace_bytes, void* stream) {
-  const size_t itemsize = bf16_storage ? 2 : 4;
+  if (bf16_storage) return (int)cudaErrorNotSupported;  // block_core2_bwd_sm90.cu
   if (workspace == nullptr) {
-    *workspace_bytes = make_plan(a, tm, itemsize, nullptr).total;
+    *workspace_bytes = make_plan(a, tm, nullptr).total;
     return 0;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned char* ws = static_cast<unsigned char*>(workspace);
-  return bf16_storage ? run_tm<bf16>(tm, tanh_gelu, a, ws, s)
-                      : run_tm<float>(tm, tanh_gelu, a, ws, s);
+  if (tm == 32) return tanh_gelu ? run_typed<32, true>(a, ws, s) : run_typed<32, false>(a, ws, s);
+  if (tm == 16) return tanh_gelu ? run_typed<16, true>(a, ws, s) : run_typed<16, false>(a, ws, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2 and K4 share one entry: hb, xb, mean_b, rsig_b, dnb, dxb, s1b and s2b
-// are null and C2 = 0 for the one-input form. With workspace null it only
+// K2 and K4 in f32 (bf16_storage must be 0) share one entry: hb, xb,
+// mean_b, rsig_b, dnb, dxb, s1b and s2b are null and C2 = 0 for the
+// one-input form. With workspace null it only
 // writes the workspace's size in bytes to *workspace_bytes; otherwise it
 // launches every pass on the stream and returns cudaGetLastError() of the
 // first launch that failed, or 0.
@@ -608,9 +488,13 @@ int block_core_bwd(int bf16_storage, int tanh_gelu, int tm, const void* ha, cons
                    float* dws, float* s1a, float* s2a, float* s1b, float* s2b, int B, int HW,
                    int C1, int C2, int C1p, int Cp, int H4, int H4p, int HC, int P, int Pp,
                    void* workspace, unsigned long long* workspace_bytes, void* stream) {
-  Args a{ha,  hb,  xa,  xb,  g,   mean_a, rsig_a, mean_b, rsig_b, w1, b1, w2, ws, dna, dnb,
-         dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b, B, HW, C1, C2, C1p, Cp, H4,
-         H4p, HC, P, Pp};
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto m = [](void* p) { return static_cast<float*>(p); };
+  Args a{f(ha),   f(hb),   f(xa),   f(xb), f(g),  mean_a, rsig_a, mean_b, rsig_b,
+         f(w1),   f(b1),   f(w2),   f(ws), m(dna), m(dnb), m(dxa), m(dxb), dw1,
+         db1,     dw2,     db2,     dws,   s1a,   s2a,    s1b,    s2b,    B,
+         HW,      C1,      C2,      C1p,   Cp,    H4,     H4p,    HC,     P,
+         Pp};
   return run(bf16_storage, tanh_gelu, tm, a, workspace, workspace_bytes, stream);
 }
 

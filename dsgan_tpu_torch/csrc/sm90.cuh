@@ -25,6 +25,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace sm90 {
 
@@ -333,6 +334,45 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
     fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
   }
   return fn;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device. What each (kernel, device) was granted is remembered, so that a
+// kernel launched again pays for no call: a batch-1 call is paced by the
+// host.
+inline int allow_smem(const void* kernel, int bytes) {
+  struct Grant {
+    const void* kernel;
+    int device, bytes;
+  };
+  static Grant grants[256];
+  static int n = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n; ++i)
+    if (grants[i].kernel == kernel && grants[i].device == dev && grants[i].bytes >= bytes) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (n < 256) grants[n++] = Grant{kernel, dev, bytes};
+  return 0;
+}
+
+// The current device's SM count, asked of the runtime once per device.
+inline int sm_count(int* sms) {
+  static int known[64] = {0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 64 && known[dev]) {
+    *sms = known[dev];
+    return 0;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && dev < 64) known[dev] = *sms;
+  return (int)e;
 }
 
 // Error codes the host side returns beside cudaError_t values.

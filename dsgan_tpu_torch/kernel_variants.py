@@ -1,9 +1,17 @@
-"""Variants of the bf16 K3 / K4 kernels against the committed sources, on the
-card, in one process, at the decoder's four sites (batch 16, 256x256):
+"""Variants of the bf16 block-core kernels on the card, in one process:
 
-    python -m dsgan_tpu_torch.kernel_variants [--iters N]
+    python -m dsgan_tpu_torch.kernel_variants [--iters N] [--part sources|routes|all]
 
-Each variant is a text edit of ``csrc/block_core2_fwd_sm90.cu`` or
+``routes``: the bf16 forward's routes (``kernels/block_core.py::fwd_plan``)
+side by side wherever more than one can take a site of the 256x256
+generator, at batch 1 and 16: c1 narrow vs fused, c4, c5 and uc1 fused vs
+two_pass, and the fused route's 64- vs 128-row tiles at c2 and uc3; each
+timed by CUDA events in turns (a, b, b, a) with its rel-L2 to the plain
+PyTorch version.
+
+``sources``: variants of the bf16 K3 / K4 kernels against the committed
+sources at the decoder's four sites (batch 16, 256x256). Each variant is
+a text edit of ``csrc/block_core2_fwd_sm90.cu`` or
 ``csrc/block_core2_bwd_sm90.cu``, built beside the committed library and
 timed by CUDA events in turns (every variant, then every variant in the
 reverse order), with its rel-L2 to the plain PyTorch version. Variants:
@@ -42,6 +50,13 @@ VARIANTS = {
 }
 # (site, H = W, channels of each part, P) of the decoder at 256x256
 SITES = [("uc1", 32, 512, 512), ("uc2", 64, 256, 256), ("uc3", 128, 128, 128), ("uc4", 256, 64, 64)]
+# (site, H = W, parts, P, the routes that can take it) for ``routes``
+ROUTE_SITES = [("c1", 256, (3,), 64, ("narrow", "fused")),
+               ("c2", 128, (64,), 128, ("fused64", "fused128")),
+               ("c4", 32, (256,), 512, ("fused", "two_pass")),
+               ("c5", 16, (512,), 1024, ("fused", "two_pass")),
+               ("uc1", 32, (512, 512), 512, ("fused", "two_pass")),
+               ("uc3", 128, (128, 128), 128, ("fused64", "fused128"))]
 
 
 def build_variants(build, out_dir):
@@ -77,7 +92,10 @@ def entries(bc, lib, name):
     base = bc._lib()
     if name == "block_core2_fwd_sm90":
         fn.argtypes = [i] + [p] * 14 + [ll] + [i] * 13 + [p]
-        return base._replace(fwd2_sm90=fn)
+        two_pass, narrow = lib.block_core_fwd_sm90_two_pass, lib.block_core_fwd_narrow
+        two_pass.argtypes, narrow.argtypes = base.fwd_two_pass.argtypes, base.fwd_narrow.argtypes
+        two_pass.restype = narrow.restype = i
+        return base._replace(fwd2_sm90=fn, fwd_two_pass=two_pass, fwd_narrow=narrow)
     fn.argtypes = [i] + [p] * 27 + [i] * 11 + [p, ctypes.POINTER(ctypes.c_ulonglong), p]
     return base._replace(bwd2_sm90=fn)
 
@@ -86,9 +104,60 @@ def rel_l2(got, want):
     return float((got.float() - want.float()).norm() / want.float().norm().clamp(min=1e-30))
 
 
+def time_ms(torch, fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def routes(torch, bc, instance_stats, iters):
+    """Every route that can take a site, on the same inputs, in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dt = torch.bfloat16
+    for batch in (1, 16):
+        for site, side, parts, p, names in ROUTE_SITES:
+            c = sum(parts)
+
+            def act(ch):
+                t = torch.randn((batch, ch, side, side), generator=gen, device="cuda")
+                return t.to(dt).contiguous(memory_format=torch.channels_last)
+
+            w = [(torch.randn(s, generator=gen, device="cuda") * k).to(dt) for s, k in (
+                ((c, 4 * c), 0.05), ((4 * c,), 1.0), ((4 * c, p), 0.05), ((p,), 1.0), ((c, p), 0.05))]
+            hs, xs = [act(ci) for ci in parts], [act(ci) for ci in parts]
+            stats = [s for h in hs for s in instance_stats(h)]
+            fwd_parts = [(h, x, stats[2 * i], stats[2 * i + 1]) for i, (h, x) in enumerate(zip(hs, xs))]
+            packed = bc.pack_weights(*w, dt, c1=parts[0])
+            m, (cp, h4p), pp = batch * side * side, packed.w1.shape, packed.w2.shape[1]
+            fused = bc._fused_plan(m, cp, pp)
+            plans = {"narrow": bc.FwdPlan("narrow", 0, 0, 0, 0, 0, 1, 0), "fused": fused,
+                     "fused64": fused._replace(nwg=1), "fused128": fused._replace(nwg=2),
+                     "two_pass": bc._two_pass_plan(m, cp, h4p, pp)}
+            if len(parts) == 1:
+                want = bc.block_core_reference(hs[0], xs[0], *stats, *w, "tanh")
+            else:
+                want = bc.block_core2_reference(*hs, *xs, *stats, *w, "tanh")
+            row = dict(site=site, batch=batch, chosen=bc.fwd_plan(m, parts[0], sum(parts[1:]), h4p,
+                                                                  pp).route,
+                       plans={n: plans[n]._asdict() for n in names}, ms={}, rel_l2={})
+            with torch.inference_mode():
+                for name in names + names[::-1]:
+                    call = lambda: bc._launch_fwd_sm90(fwd_parts, packed, "tanh", plans[name])
+                    row["rel_l2"][name] = rel_l2(call(), want)
+                    row["ms"].setdefault(name, []).append(time_ms(torch, call, iters))
+            print(json.dumps(row), flush=True)
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="Variants of the bf16 K3 / K4 kernels on the card")
+    ap = argparse.ArgumentParser(description="Variants of the bf16 block-core kernels on the card")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--part", choices=("sources", "routes", "all"), default="all")
     args = ap.parse_args(argv)
 
     import torch
@@ -101,21 +170,14 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     print(card_info())
+    if args.part in ("routes", "all"):
+        routes(torch, bc, instance_stats, args.iters)
+    if args.part == "routes":
+        return
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_variants(_build, tmp)
         gen = torch.Generator(device="cuda").manual_seed(0)
         dt, batch = torch.bfloat16, 16
-
-        def time_ms(fn):
-            fn()
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(args.iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / args.iters
 
         for site, side, c1, p in SITES:
             c = 2 * c1
@@ -154,7 +216,7 @@ def main(argv=None):
                                 err = max(rel_l2(a, b) for a, b in zip(got, want))
                             else:
                                 err = rel_l2(got, want)
-                            row["ms"].setdefault(variant, []).append(time_ms(call))
+                            row["ms"].setdefault(variant, []).append(time_ms(torch, call, args.iters))
                             row["rel_l2"][variant] = err
                     finally:
                         bc._lib = real

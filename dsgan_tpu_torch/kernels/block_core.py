@@ -18,12 +18,14 @@ forward and K2 / K4 backward, and fold S1, S2 into the closed-form
 InstanceNorm cotangent (``in_fold``), as ``_in_vjp_bwd`` /
 ``_in2_vjp_bwd`` do in the JAX package.
 
-K3 and K4 in bf16 run the Hopper kernels ``csrc/block_core2_fwd_sm90.cu``
-and ``csrc/block_core2_bwd_sm90.cu`` (wgmma fed by TMA, 128-row tiles);
-in f32 they run the FMA check builds of ``block_core.cu`` /
-``block_core_bwd.cu``. ``k3_plan`` and ``k4_plan`` mirror the tile,
-shared-memory and workspace plans of the bf16 kernels and raise on what
-they cannot take.
+In bf16 all four run the Hopper kernels: K1 and K3
+``csrc/block_core2_fwd_sm90.cu`` (wgmma fed by TMA, 128-row tiles, and
+for one input of at most 16 channels an FMA kernel shaped for
+bandwidth), K2 and K4 ``csrc/block_core2_bwd_sm90.cu`` (the one-input
+form is the two-part kernel with no part b). In f32 they run the FMA
+check builds of ``block_core.cu`` / ``block_core_bwd.cu``. ``fwd_plan``
+and ``k4_plan`` mirror the routes, tiles, shared-memory and workspace
+plans of the bf16 kernels and raise on what they cannot take.
 
 Activations are NCHW tensors. On a CUDA tensor a wrapper launches its
 kernel, which needs them contiguous in ``torch.channels_last`` order (the
@@ -60,8 +62,8 @@ from dsgan_tpu_torch.ops.norm import instance_stats
 # Shared memory a block may use on Hopper (232,448 bytes).
 MAX_SMEM = 227 * 1024
 SMS = 132  # streaming multiprocessors of the H100
-ROWS_PER_BLOCK = 32  # TM of the forward in the CUDA source
-BWD_ROWS = (32, 16)  # row-pass tiles of the backward, the first that fits
+ROWS_PER_BLOCK = 32  # TM of the f32 forward check build
+BWD_ROWS = (32, 16)  # row-pass tiles of the f32 backward check build, the first that fits
 CL = torch.channels_last
 _K0, _K1 = 0.7978845608028654, 0.044715  # sqrt(2 / pi), the tanh GELU's cubic
 
@@ -80,8 +82,8 @@ class PackedWeights(NamedTuple):
     c1p: int           # padded rows of part a; part b starts here
     h4: int
     p: int
-    # bf16 two-part packs only: the transposes (H4p, Cp), (Pp, H4p), (Pp, Cp)
-    # that the Hopper kernels read as K-major operands
+    # bf16 packs only: the transposes (H4p, Cp), (Pp, H4p), (Pp, Cp) that
+    # the Hopper kernels read as K-major operands
     w1t: torch.Tensor = None
     w2t: torch.Tensor = None
     wst: torch.Tensor = None
@@ -110,7 +112,7 @@ def pack_weights(w1, b1, w2, b2, ws, dtype, c1=None):
     b2p[:p] = b2
     w1p, wsp = rows_split(w1, h4p), rows_split(ws, pp)
     tr = {}
-    if dtype == torch.bfloat16 and c1 < c:
+    if dtype == torch.bfloat16:
         tr = dict(w1t=w1p.t().contiguous(), w2t=w2p.t().contiguous(), wst=wsp.t().contiguous())
     return PackedWeights(w1p, b1p, w2p, b2p, wsp, c1, c1p, h4, p, **tr)
 
@@ -234,11 +236,13 @@ SOURCES = ("block_core", "block_core_bwd", "block_core2_fwd_sm90", "block_core2_
 
 
 class _Entries(NamedTuple):
-    fwd: object    # K1 and the f32 K3
-    fwd2: object
-    bwd: object    # K2 and the f32 K4
-    fwd2_sm90: object
-    bwd2_sm90: object
+    fwd: object        # the f32 K1 check build
+    fwd2: object       # the f32 K3 check build
+    bwd: object        # the f32 K2 / K4 check build
+    fwd2_sm90: object  # bf16 K1 / K3, fused route
+    fwd_two_pass: object  # bf16 K1 / K3, two-pass route
+    fwd_narrow: object    # bf16 K1, narrow route
+    bwd2_sm90: object  # bf16 K2 / K4
 
 
 @functools.cache
@@ -255,13 +259,18 @@ def _lib():
     fwd2.argtypes = [i, i] + [p] * 14 + [ll] + [i] * 9 + [p]
     bwd = _build.load("block_core_bwd").block_core_bwd
     bwd.argtypes = [i] * 3 + [p] * 26 + [i] * 11 + [p, size, p]
-    fwd2_sm90 = _build.load("block_core2_fwd_sm90").block_core2_fwd_sm90
+    sm90 = _build.load("block_core2_fwd_sm90")
+    fwd2_sm90, two_pass, narrow = (sm90.block_core2_fwd_sm90, sm90.block_core_fwd_sm90_two_pass,
+                                   sm90.block_core_fwd_narrow)
     fwd2_sm90.argtypes = [i] + [p] * 14 + [ll] + [i] * 13 + [p]
+    two_pass.argtypes = [i] + [p] * 15 + [ll] + [i] * 13 + [p]
+    narrow.argtypes = [i] + [p] * 10 + [ll] + [i] * 4 + [p]
     bwd2_sm90 = _build.load("block_core2_bwd_sm90").block_core2_bwd_sm90
     bwd2_sm90.argtypes = [i] + [p] * 27 + [i] * 11 + [p, size, p]
-    for f in (fwd, fwd2, bwd, fwd2_sm90, bwd2_sm90):
+    entries = _Entries(fwd, fwd2, bwd, fwd2_sm90, two_pass, narrow, bwd2_sm90)
+    for f in entries:
         f.restype = i
-    return _Entries(fwd, fwd2, bwd, fwd2_sm90, bwd2_sm90)
+    return entries
 
 
 def _hidden_chunk(h4p):
@@ -269,35 +278,29 @@ def _hidden_chunk(h4p):
     return next(hc for hc in (128, 64, 32, 16) if h4p % hc == 0)
 
 
-def smem_bytes(itemsize, cp, hc, pp):
-    """Shared memory of one thread block of ROWS_PER_BLOCK rows (mirrors
-    ``smem_bytes`` in the CUDA source): f32 accumulator and hidden chunk,
-    the input tile, and in bf16 the activated hidden; every row padded by
-    16 bytes."""
-    tm, pad = ROWS_PER_BLOCK, 16 // itemsize
-    s = 4 * tm * (pp + 4 + hc + 4) + itemsize * tm * (cp + pad)
-    if itemsize != 4:
-        s += itemsize * tm * (hc + pad)
-    return s
+def smem_bytes(cp, hc, pp):
+    """Shared memory of one thread block of the f32 forward check build,
+    ROWS_PER_BLOCK rows (mirrors ``smem_bytes`` in ``csrc/block_core.cu``):
+    the accumulator, the hidden chunk and the input tile, every row padded
+    by 16 bytes."""
+    return 4 * ROWS_PER_BLOCK * (pp + 4 + hc + 4 + cp + 4)
 
 
-def bwd_smem_bytes(itemsize, tm, cp, hc, pp):
-    """Shared memory of one row-pass block of the backward (mirrors
-    ``row_smem_bytes`` in ``csrc/block_core_bwd.cu``): the f32 dn
-    accumulator and the hidden and da chunks, then in the storage dtype
-    the normalized input, the cotangent tile and the rounded dg1 chunk;
-    every row padded by 16 bytes."""
-    pad = 16 // itemsize
-    return 4 * tm * ((cp + 4) + 2 * (hc + 4)) + itemsize * tm * ((cp + pad) + (pp + pad) + (hc + pad))
+def bwd_smem_bytes(tm, cp, hc, pp):
+    """Shared memory of one row-pass block of the f32 backward check build
+    (mirrors ``row_smem_bytes`` in ``csrc/block_core_bwd.cu``): the dn
+    accumulator, the hidden and da chunks, the normalized input and the
+    cotangent tile; every row padded by 16 bytes."""
+    return 4 * tm * ((cp + 4) + 2 * (hc + 4) + (cp + 4) + (pp + 4))
 
 
-def bwd_rows(itemsize, cp, hc, pp):
-    """Rows of the backward's row-pass tile: the first of ``BWD_ROWS``
+def bwd_rows(cp, hc, pp):
+    """Rows of the f32 backward's row-pass tile: the first of ``BWD_ROWS``
     whose tile fits a block's shared memory; raises if none does."""
     for tm in BWD_ROWS:
-        if bwd_smem_bytes(itemsize, tm, cp, hc, pp) <= MAX_SMEM:
+        if bwd_smem_bytes(tm, cp, hc, pp) <= MAX_SMEM:
             return tm
-    need = bwd_smem_bytes(itemsize, BWD_ROWS[-1], cp, hc, pp)
+    need = bwd_smem_bytes(BWD_ROWS[-1], cp, hc, pp)
     raise ValueError(f"block core backward tile needs {need} B of shared memory (> {MAX_SMEM})")
 
 
@@ -309,41 +312,111 @@ def _align256(n):
     return _cdiv(n, 256) * 256
 
 
-class K3Plan(NamedTuple):
-    """Tiles of the bf16 K3 kernel (``csrc/block_core2_fwd_sm90.cu``)."""
-    nwg: int     # consumer warpgroups of 64 rows: 128 or 64 rows a block
-    pn: int      # output columns a block
+class FwdPlan(NamedTuple):
+    """The bf16 forward's route and tiles (``csrc/block_core2_fwd_sm90.cu``)."""
+    route: str   # "fused", "two_pass" or "narrow"
+    nwg: int     # consumer warpgroups of 64 rows (two_pass: pass 1's; narrow: 0)
+    pn: int      # output columns a block (two_pass: pass 2's)
     hc: int      # hidden columns a GEMM1 chunk
-    stages: int  # weight tiles in flight
-    smem: int    # shared memory a block, bytes
-    splits: int  # blocks over the output columns of one row tile
+    stages: int  # weight tiles in flight (two_pass: pass 1's; pass 2 has FWD_OUT_STAGES)
+    smem: int    # shared memory of the largest block, bytes
+    splits: int  # blocks over one row tile: output column blocks, or (two_pass) hidden slices
+    cps: int     # two_pass: hidden chunks a slice
 
 
-def k3_smem_bytes(rows, cp, pn, hc, stages):
+FWD_OUT_STAGES = 4
+FWD_OUT_SMEM = {bn: 1024 + FWD_OUT_STAGES * (16384 + bn * 128) + 16 * FWD_OUT_STAGES
+                for bn in (128, 256)}
+
+
+def fwd_smem_bytes(rows, cp, pn, hc, stages):
     """Mirrors ``smem_bytes`` in ``csrc/block_core2_fwd_sm90.cu``: the
     resident A tile (rows x Cp rounded up to 64, bf16), the ring of weight
     tiles, the barriers, alignment slack."""
     return 1024 + _cdiv(cp, 64) * rows * 128 + stages * max(pn, hc) * 128 + 16 * stages
 
 
-def k3_plan(m, cp, pp):
-    """K3's tiles for ``m`` rows: output columns in blocks of at most 256
-    (P = 512 splits in two, each block recomputing GEMM1), 128 rows a
-    block where that tile fits shared memory and still gives every SM a
-    block, else 64; the deepest ring (4 stages at most) that fits. Raises
-    where not even 64 rows fit."""
+NARROW_C = 4  # the narrow route: one input of at most 4 channels (H4p = 16)
+NARROW_THREADS = 128  # rows a block of the narrow forward
+
+
+def narrow_route(c1, c2):
+    """Whether K1 / K2 take their narrow kernels (``csrc/block_core2_fwd_sm90
+    .cu``, ``csrc/block_core2_bwd_sm90.cu``): one input of at most 4
+    channels, whose whole hidden is one 16-wide tile (c1: C = 3)."""
+    return c2 == 0 and c1 <= NARROW_C
+
+
+def narrow_smem_bytes(pp):
+    """Mirrors ``narrow_smem_bytes`` in ``csrc/block_core2_fwd_sm90.cu``:
+    W1 (NARROW_C x 16), b1, W2 (16 x Pp), Ws (NARROW_C x Pp) and b2 in f32,
+    then the block's bf16 output rows, each padded by 16 bytes."""
+    return 4 * (NARROW_C * 16 + 16 + (16 + NARROW_C + 1) * pp) + NARROW_THREADS * (2 * pp + 16)
+
+
+def _tiles(m, cp, pn, hc, parts):
+    """(warpgroups, stages, shared memory) of the fused kernel's front: 128
+    rows where that tile fits shared memory and takes fewer waves of work
+    items over the SMs than 64-row tiles would (a warpgroup's work per item
+    is 64 rows either way), else 64; the deepest ring (4 stages at most)
+    that fits; None where not even 64 rows fit."""
+    for nwg in (2, 1):
+        if nwg == 2 and _cdiv(_cdiv(m, 128) * parts, SMS) >= _cdiv(_cdiv(m, 64) * parts, SMS):
+            continue
+        for stages in (4, 3, 2):
+            smem = fwd_smem_bytes(64 * nwg, cp, pn, hc, stages)
+            if smem <= MAX_SMEM:
+                return nwg, stages, smem
+    return None
+
+
+def _fused_plan(m, cp, pp):
+    """The fused route: output columns in blocks of at most 256 (a wider P
+    splits, each block recomputing GEMM1)."""
     pn = 64 if pp <= 64 else 128 if pp <= 128 else 256
     hc = 64 if pn == 256 else 128
     splits = _cdiv(pp, pn)
-    for nwg in (2, 1):
-        if nwg == 2 and _cdiv(m, 128) * splits < SMS:
-            continue
-        for stages in (4, 3, 2):
-            smem = k3_smem_bytes(64 * nwg, cp, pn, hc, stages)
-            if smem <= MAX_SMEM:
-                return K3Plan(nwg, pn, hc, stages, smem, splits)
-    need = k3_smem_bytes(64, cp, pn, hc, 2)
-    raise ValueError(f"block core K3 tile needs {need} B of shared memory (> {MAX_SMEM})")
+    tiles = _tiles(m, cp, pn, hc, splits)
+    if tiles is None:
+        need = fwd_smem_bytes(64, cp, pn, hc, 2)
+        raise ValueError(f"block core forward tile needs {need} B of shared memory (> {MAX_SMEM})")
+    nwg, stages, smem = tiles
+    return FwdPlan("fused", nwg, pn, hc, stages, smem, splits, 0)
+
+
+def _two_pass_plan(m, cp, h4p, pp):
+    """The two-pass route: pass 1 cuts each row tile's hidden into as many
+    slices of 128-wide chunks as fill the SMs; pass 2 takes 256-wide column
+    blocks where they fill the SMs, else 128."""
+    nj = _cdiv(h4p, 128)
+    tiles = _tiles(m, cp, 64, 128, nj)
+    if tiles is None:
+        need = fwd_smem_bytes(64, cp, 64, 128, 2)
+        raise ValueError(f"block core forward tile needs {need} B of shared memory (> {MAX_SMEM})")
+    nwg, stages, smem = tiles
+    cps = _cdiv(nj, min(nj, _cdiv(SMS, _cdiv(m, 64 * nwg))))
+    bn = 256 if _cdiv(m, 128) * _cdiv(pp, 256) >= SMS else 128
+    return FwdPlan("two_pass", nwg, bn, 128, stages, max(smem, FWD_OUT_SMEM[bn]), _cdiv(nj, cps),
+                   cps)
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_plan(m, c1, c2, h4p, pp):
+    """The bf16 forward's route for ``m`` rows of parts of ``c1`` and
+    ``c2`` channels (``c2 = 0``: one input), hidden ``h4p`` and output
+    ``pp`` wide (padded): narrow (``narrow_route``); two passes where P >
+    256 and the parts may be read by TMA (widths multiples of 8); fused
+    otherwise. Raises where the tiles do not fit shared memory."""
+    cp = _ceil16(c1) + _ceil16(c2)
+    if narrow_route(c1, c2):
+        smem = narrow_smem_bytes(pp)
+        if smem > MAX_SMEM:
+            raise ValueError(f"block core narrow forward needs {smem} B of shared memory "
+                             f"(> {MAX_SMEM})")
+        return FwdPlan("narrow", 0, 0, 0, 0, smem, 1, 0)
+    if pp > 256 and c1 % 8 == 0 and c2 % 8 == 0:
+        return _two_pass_plan(m, cp, h4p, pp)
+    return _fused_plan(m, cp, pp)
 
 
 # the bf16 K4 kernel (csrc/block_core2_bwd_sm90.cu): STAGES-deep rings;
@@ -377,12 +450,12 @@ def _reduce_tmp(groups, terms, cols):
 
 
 def k4_plan(b, hw, cp, h4p, p, pp):
-    """Mirrors ``make_plan`` in ``csrc/block_core2_bwd_sm90.cu``: the row
-    tiles, the splits of the weight pass and the workspace (a and x side
-    by side, g padded where P % 8 != 0, ag, dg1, the partial sums, the
-    reduce's first level). Its tiles, hence its shared memory, do not
-    depend on C; it raises where the kernels' 32-bit indices cannot take
-    the call."""
+    """Mirrors ``make_plan`` in ``csrc/block_core2_bwd_sm90.cu`` (the bf16
+    K2 and K4): the row tiles, the splits of the weight pass and the
+    workspace (a and x side by side, g padded where P % 8 != 0, ag, dg1, the
+    partial sums, the reduce's first level). Its tiles, hence its shared
+    memory, do not depend on C; it raises where the kernels' 32-bit indices
+    cannot take the call."""
     m = b * hw
     if m * max(cp, h4p, pp) >= 2 ** 31:
         raise ValueError(f"block core K4 takes fewer than 2^31 elements a matrix, not {m} rows")
@@ -408,96 +481,144 @@ def k4_plan(b, hw, cp, h4p, p, pp):
     return K4Plan(timg, tiles, gcopy, tuple(jobs), total, max(K4_ROW_SMEM, *K4_W_SMEM.values()))
 
 
-def _check_shapes(parts):
-    """Each part: x shaped as h, f32 (B, C) statistics of h."""
-    for h, x, mean, rsig in parts:
-        if h.dim() != 4 or x.shape != h.shape:
-            raise ValueError(f"h {tuple(h.shape)} and x {tuple(x.shape)} must be one (B, C, H, W)")
-        for s in (mean, rsig):
-            if s.shape != h.shape[:2] or s.dtype != torch.float32 or s.device != h.device:
-                raise ValueError("statistics must be f32 (B, C) tensors on h's device")
-
-
-def _check_packed(packed, ha, hb=None):
-    """``packed`` is laid out for these parts, and the parts agree in batch
-    and spatial size."""
-    c1, c2 = ha.shape[1], (0 if hb is None else hb.shape[1])
-    if packed.c1 != c1 or packed.w1.shape[0] != packed.c1p + _ceil16(c2):
-        raise ValueError(f"packed weights do not match a block of {c1} + {c2} input channels")
-    if hb is not None and (hb.shape[0] != ha.shape[0] or hb.shape[2:] != ha.shape[2:]):
-        raise ValueError("the two parts must share batch and spatial size")
-
-
-def _check_cuda(acts, packed, dtype):
-    for t in acts:
-        if t.device != acts[0].device or t.dtype != dtype:
-            raise ValueError("block core inputs must share one device and dtype")
-        if not t.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError("block core kernel needs channels_last-contiguous activations")
-    if dtype not in (torch.bfloat16, torch.float32):
+def _check(parts, packed, g=None):
+    """What the kernels take: one device and one dtype (bf16 or f32) for the
+    parts [(h, x, mean, rsig), ...], the cotangent ``g`` and the packed
+    weights; each part's x shaped as its h, the parts sharing batch and
+    spatial size, f32 (B, C) statistics of each h; channels_last-contiguous
+    activations; ``packed`` laid out for these parts. Raises ValueError."""
+    h0 = parts[0][0]
+    dtype, dev = h0.dtype, h0.get_device()
+    if dtype is not torch.bfloat16 and dtype is not torch.float32:
         raise ValueError(f"block core kernel takes bf16 or f32, not {dtype}")
-    for w in (packed.w1, packed.b1, packed.w2, packed.b2, packed.ws):
-        if w.device != acts[0].device or w.dtype != dtype or not w.is_contiguous():
+    c2 = parts[1][0].shape[1] if len(parts) > 1 else 0
+    if packed.c1 != h0.shape[1] or packed.w1.shape[0] != packed.c1p + _ceil16(c2):
+        raise ValueError(f"packed weights do not match a block of {h0.shape[1]} + {c2} input channels")
+    s0 = h0.shape
+    acts = [g] if g is not None else []
+    for h, x, mean, rsig in parts:
+        hs = h.shape
+        if len(hs) != 4 or x.shape != hs:
+            raise ValueError(f"h {tuple(hs)} and x {tuple(x.shape)} must be one (B, C, H, W)")
+        if hs[0] != s0[0] or hs[2:] != s0[2:]:
+            raise ValueError("the two parts must share batch and spatial size")
+        for st in (mean, rsig):
+            if st.dtype is not torch.float32 or st.shape != hs[:2] or st.get_device() != dev:
+                raise ValueError("statistics must be f32 (B, C) tensors on h's device")
+        acts += (h, x)
+    for t in acts:
+        if t.dtype is not dtype or t.get_device() != dev:
+            raise ValueError("block core inputs must share one device and dtype")
+        if not t.is_contiguous(memory_format=CL):
+            raise ValueError("block core kernel needs channels_last-contiguous activations")
+    for w in packed[:5]:
+        if w.dtype is not dtype or w.get_device() != dev or not w.is_contiguous():
             raise ValueError("packed weights must be contiguous, in the activations' dtype and device")
 
 
 def _check_transposes(packed):
-    """The bf16 K3 / K4 kernels read the transposed weights."""
+    """The bf16 wgmma kernels read the transposed weights."""
     if packed.w1t is None:
-        raise ValueError("packed weights lack the transposes of a bf16 two-part pack_weights")
+        raise ValueError("packed weights lack the transposes of a bf16 pack_weights")
 
 
-def _vec(acts, stats, c1, c2):
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _aligned16(t):
+    """``t``, copied where TMA could not read it (a base not on 16 bytes)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone(memory_format=CL)
+
+
+def _vec(tensors, c1, c2):
     """Whether the kernels may read the parts' rows 16 bytes at a time."""
     return int(c1 % 8 == 0 and c2 % 8 == 0
-               and all(t.data_ptr() % 16 == 0 for t in (*acts, *stats)))
+               and all(t.data_ptr() % 16 == 0 for t in tensors if t is not None))
 
 
-def _launch_k3_sm90(acts, stats, packed, gelu, shape, c2):
-    """The bf16 K3 kernel (``csrc/block_core2_fwd_sm90.cu``) on its plan."""
-    b, c1, hh, ww = shape
+def _parts4(parts):
+    """[(h, x, mean, rsig)] or two such parts -> (ha, hb, xa, xb), (ma, ra,
+    mb, rb), with None for a missing part b."""
+    (ha, xa, ma, ra), (hb, xb, mb, rb) = parts[0], (parts[1] if len(parts) > 1 else (None,) * 4)
+    stats = tuple(None if s is None else s.contiguous() for s in (ma, ra, mb, rb))
+    return (ha, hb, xa, xb), stats
+
+
+def _launch_fwd_sm90(parts, packed, gelu, plan):
+    """The bf16 forward (``csrc/block_core2_fwd_sm90.cu``) on one or two
+    parts [(h, x, mean, rsig), ...], on the route and tiles of ``plan``."""
+    (ha, hb, xa, xb), stats = _parts4(parts)
+    b, c1, hh, ww = ha.shape
+    c2 = 0 if hb is None else hb.shape[1]
     cp, h4p = packed.w1.shape
-    pp = packed.w2.shape[1]
-    m = b * hh * ww
-    plan = k3_plan(m, cp, pp)
-    _check_transposes(packed)
-    out = torch.empty((b, packed.p, hh, ww), dtype=acts[0].dtype, device=acts[0].device,
-                      memory_format=CL)
-    stream = torch.cuda.current_stream(acts[0].device).cuda_stream
-    stats = [s.contiguous() for s in stats]
-    ptrs = [t.data_ptr() for t in (*acts, *stats, packed.w1t, packed.b1, packed.w2t, packed.b2,
-                                   packed.wst, out)]
-    dims = [hh * ww, c1, c2, packed.c1p, cp, h4p, packed.p, pp, plan.nwg, plan.pn, plan.hc,
-            plan.stages, _vec(acts, stats, c1, c2)]
-    err = _lib().fwd2_sm90(int(gelu == "tanh"), *ptrs, m, *dims, stream)
+    pp, m, hw = packed.w2.shape[1], b * hh * ww, hh * ww
+    dev = ha.device
+    out = torch.empty((b, packed.p, hh, ww), dtype=torch.bfloat16, device=dev, memory_format=CL)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tanh = int(gelu == "tanh")
+    if plan.route == "narrow":
+        err = _lib().fwd_narrow(tanh, ha.data_ptr(), xa.data_ptr(), *map(_ptr, stats[:2]),
+                                *(t.data_ptr() for t in (packed.w1, packed.b1, packed.w2,
+                                                         packed.b2, packed.ws, out)),
+                                m, hw, c1, packed.p, pp, stream)
+    else:
+        _check_transposes(packed)
+        acts = (ha, hb, xa, xb)
+        vec = _vec((*acts, *stats), c1, c2)
+        weights = (packed.w1t, packed.b1, packed.w2t, packed.b2, packed.wst)
+        dims = [hw, c1, c2, packed.c1p, cp, h4p, packed.p, pp]
+        if plan.route == "fused":
+            err = _lib().fwd2_sm90(tanh, *map(_ptr, (*acts, *stats, *weights, out)), m, *dims,
+                                   plan.nwg, plan.pn, plan.hc, plan.stages, vec, stream)
+        else:  # two passes: pass 2 reads x by TMA
+            acts = (ha, hb, _aligned16(xa), _aligned16(xb))
+            hid = torch.empty((m, h4p), dtype=torch.bfloat16, device=dev)
+            err = _lib().fwd_two_pass(tanh, *map(_ptr, (*acts, *stats, *weights, hid, out)), m,
+                                      *dims, plan.nwg, plan.cps, plan.pn, plan.stages, vec, stream)
     if err:
-        raise RuntimeError(f"block core K3 launch failed: error {err}")
+        raise RuntimeError(f"block core forward ({plan.route}) launch failed: error {err}")
     return out
 
 
 def _launch(fn, acts, stats, packed, gelu, shape, c2):
+    """The f32 check build of K1 (``fn`` = fwd) or K3 (fwd2)."""
     b, c1, hh, ww = shape
-    dtype = acts[0].dtype
-    is_bf16 = int(dtype == torch.bfloat16)
-    if gelu not in ("tanh", "erf"):
-        raise ValueError(f"unknown gelu flavour [{gelu}]")
     cp, h4p = packed.w1.shape
     pp = packed.w2.shape[1]
     hc = _hidden_chunk(h4p)
-    smem = smem_bytes(2 if is_bf16 else 4, cp, hc, pp)
+    smem = smem_bytes(cp, hc, pp)
     if smem > MAX_SMEM:
         raise ValueError(f"block core tile needs {smem} B of shared memory (> {MAX_SMEM})")
-    out = torch.empty((b, packed.p, hh, ww), dtype=dtype, device=acts[0].device,
-                      memory_format=torch.channels_last)
+    out = torch.empty((b, packed.p, hh, ww), dtype=torch.float32, device=acts[0].device,
+                      memory_format=CL)
     stream = torch.cuda.current_stream(acts[0].device).cuda_stream
     stats = [s.contiguous() for s in stats]
     ptrs = [t.data_ptr() for t in (*acts, *stats)]
     wptrs = [t.data_ptr() for t in (packed.w1, packed.b1, packed.w2, packed.b2, packed.ws)]
     dims = [b * hh * ww, hh * ww, c1] + ([c2, packed.c1p] if c2 else []) + [cp, h4p, hc, packed.p, pp]
-    err = fn(is_bf16, int(gelu == "tanh"), *ptrs, *wptrs, out.data_ptr(), *dims, stream)
+    err = fn(0, int(gelu == "tanh"), *ptrs, *wptrs, out.data_ptr(), *dims, stream)
     if err:
         raise RuntimeError(f"block core kernel launch failed: CUDA error {err}")
     return out
+
+
+def _forward(parts, packed, gelu):
+    """K1 (one part) or K3 (two): checks, then in bf16 the Hopper kernel on
+    ``fwd_plan``'s route, in f32 the FMA check build."""
+    if gelu not in ("tanh", "erf"):
+        raise ValueError(f"unknown gelu flavour [{gelu}]")
+    _check(parts, packed)
+    ha, hb = parts[0][0], (parts[1][0] if len(parts) > 1 else None)
+    b, c1, hh, ww = ha.shape
+    c2 = 0 if hb is None else hb.shape[1]
+    if ha.dtype == torch.bfloat16:
+        plan = fwd_plan(b * hh * ww, c1, c2, packed.w1.shape[1], packed.w2.shape[1])
+        return _launch_fwd_sm90(parts, packed, gelu, plan)
+    (ha, hb, xa, xb), stats = _parts4(parts)
+    if c2:
+        return _launch(_lib().fwd2, (ha, hb, xa, xb), stats, packed, gelu, ha.shape, c2)
+    return _launch(_lib().fwd, (ha, xa), stats[:2], packed, gelu, ha.shape, 0)
 
 
 def block_core(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
@@ -507,10 +628,7 @@ def block_core(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
         return block_core_reference(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu)
     if packed is None:
         packed = pack_weights(w1, b1, w2, b2, ws, h.dtype)
-    _check_packed(packed, h)
-    _check_shapes(((h, x, mean, rsig),))
-    _check_cuda((h, x), packed, h.dtype)
-    out = _launch(_lib().fwd, (h, x), (mean, rsig), packed, gelu, h.shape, 0)
+    out = _forward([(h, x, mean, rsig)], packed, gelu)
     block_core.launches += 1
     return out
 
@@ -522,16 +640,7 @@ def block_core2(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, gelu="tanh",
         return block_core2_reference(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, gelu)
     if packed is None:
         packed = pack_weights(w1, b1, w2, b2, ws, ha.dtype, c1=ha.shape[1])
-    _check_packed(packed, ha, hb)
-    _check_shapes(((ha, xa, ma, ra), (hb, xb, mb, rb)))
-    _check_cuda((ha, hb, xa, xb), packed, ha.dtype)
-    acts, stats = (ha, hb, xa, xb), (ma, ra, mb, rb)
-    if ha.dtype == torch.bfloat16:  # the Hopper kernel
-        if gelu not in ("tanh", "erf"):
-            raise ValueError(f"unknown gelu flavour [{gelu}]")
-        out = _launch_k3_sm90(acts, stats, packed, gelu, ha.shape, hb.shape[1])
-    else:  # the FMA check build
-        out = _launch(_lib().fwd2, acts, stats, packed, gelu, ha.shape, hb.shape[1])
+    out = _forward([(ha, xa, ma, ra), (hb, xb, mb, rb)], packed, gelu)
     block_core2.launches += 1
     return out
 
@@ -540,8 +649,8 @@ def _launch_bwd(parts, g, packed, gelu):
     """K2 (one part) or K4 (two parts); ``parts``: [(h, x, mean, rsig), ...].
     Allocates the outputs and the kernel's workspace (the scratch and the
     f32 partial sums), then runs every pass on the current stream: in bf16
-    K4 the Hopper kernel's (``k4_plan``), else the 32-row kernel's."""
-    (ha, xa, ma, ra), (hb, xb, mb, rb) = parts[0], (parts[1] if len(parts) > 1 else (None,) * 4)
+    the Hopper kernel's (``k4_plan``), in f32 the check build's."""
+    (ha, hb, xa, xb), stats = _parts4(parts)
     b, c1, hh, ww = ha.shape
     c2 = hb.shape[1] if hb is not None else 0
     dtype, dev = ha.dtype, ha.device
@@ -549,17 +658,16 @@ def _launch_bwd(parts, g, packed, gelu):
         raise ValueError(f"unknown gelu flavour [{gelu}]")
     if g.shape != (b, packed.p, hh, ww):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match the output {(b, packed.p, hh, ww)}")
-    _check_shapes(parts)
-    _check_cuda([t for pt in parts for t in pt[:2]] + [g], packed, dtype)
+    _check(parts, packed, g)
     cp, h4p = packed.w1.shape
     pp = packed.w2.shape[1]
-    sm90 = c2 and dtype == torch.bfloat16  # K4 in bf16: the Hopper kernel
+    sm90 = dtype == torch.bfloat16
     if sm90:
         plan = k4_plan(b, hh * ww, cp, h4p, packed.p, pp)
         _check_transposes(packed)
     else:
         hc = _hidden_chunk(h4p)
-        tm = bwd_rows(ha.element_size(), cp, hc, pp)
+        tm = bwd_rows(cp, hc, pp)
 
     def act(c):
         return torch.empty((b, c, hh, ww), dtype=dtype, device=dev, memory_format=CL)
@@ -574,23 +682,18 @@ def _launch_bwd(parts, g, packed, gelu):
     s1a, s2a = f32(b, c1), f32(b, c1)
     s1b, s2b = (f32(b, c2), f32(b, c2)) if c2 else (None, None)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    stats = [None if t is None else t.contiguous() for t in (ma, ra, mb, rb)]
     outs = (dna, dnb, dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b)
     if sm90:
-        if g.data_ptr() % 16:  # TMA reads g's rows from a 16-byte aligned base
-            g = g.clone(memory_format=CL)
+        g = _aligned16(g)  # TMA reads g's rows from a 16-byte aligned base
         tensors = (ha, hb, xa, xb, g, *stats, packed.w1, packed.w1t, packed.b1, packed.w2,
                    packed.ws, *outs)
-        head = [int(gelu == "tanh")] + [ptr(t) for t in tensors]
+        head = [int(gelu == "tanh")] + [_ptr(t) for t in tensors]
         dims = [b, hh * ww, c1, c2, packed.c1p, cp, h4, h4p, p, pp,
-                _vec((ha, hb, xa, xb), stats, c1, c2)]
+                _vec((ha, hb, xa, xb, *stats), c1, c2)]
         fn = _lib().bwd2_sm90
     else:
         tensors = (ha, hb, xa, xb, g, *stats, packed.w1, packed.b1, packed.w2, packed.ws, *outs)
-        head = [int(dtype == torch.bfloat16), int(gelu == "tanh"), tm] + [ptr(t) for t in tensors]
+        head = [0, int(gelu == "tanh"), tm] + [_ptr(t) for t in tensors]
         dims = [b, hh * ww, c1, c2, packed.c1p, cp, h4, h4p, hc, p, pp]
         fn = _lib().bwd
     size = ctypes.c_ulonglong(0)
@@ -619,7 +722,6 @@ def block_core_bwd(h, x, mean, rsig, g, w1, b1, w2, ws, gelu="tanh", packed=None
         return block_core_bwd_reference(h, x, mean, rsig, g, w1, b1, w2, ws, gelu)
     if packed is None:
         packed = _bwd_pack(w1, b1, w2, ws, h.dtype)
-    _check_packed(packed, h)
     out = _launch_bwd([(h, x, mean, rsig)], g, packed, gelu)
     block_core_bwd.launches += 1
     return out
@@ -633,7 +735,6 @@ def block_core2_bwd(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws, gelu="tan
         return block_core2_bwd_reference(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws, gelu)
     if packed is None:
         packed = _bwd_pack(w1, b1, w2, ws, ha.dtype, c1=ha.shape[1])
-    _check_packed(packed, ha, hb)
     out = _launch_bwd([(ha, xa, ma, ra), (hb, xb, mb, rb)], g, packed, gelu)
     block_core2_bwd.launches += 1
     return out

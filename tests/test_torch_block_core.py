@@ -102,6 +102,12 @@ def test_packed_weights_reproduce_the_block(c1, c2, p):
     cp, h4p = pk.w1.shape
     assert cp % 16 == 0 and h4p % 16 == 0 and pk.w2.shape[1] % 16 == 0
     assert bc._hidden_chunk(h4p) in (16, 32, 64, 128) and h4p % bc._hidden_chunk(h4p) == 0
+    assert pk.w1t is None  # f32 runs the check builds, which read no transposes
+    # every bf16 pack, one part or two, carries the transposes the Hopper
+    # kernels read as K-major operands
+    pk16 = bc.pack_weights(w1, b1, w2, b2, ws, torch.bfloat16, c1=c1 if c2 else None)
+    for t, w in ((pk16.w1t, pk16.w1), (pk16.w2t, pk16.w2), (pk16.wst, pk16.ws)):
+        assert t.dtype == torch.bfloat16 and t.is_contiguous() and torch.equal(t, w.t())
 
     a = rng.standard_normal((32, c)).astype(np.float32)
     xr = rng.standard_normal((32, c)).astype(np.float32)
@@ -120,29 +126,83 @@ def test_packed_weights_reproduce_the_block(c1, c2, p):
 
 def test_model_shapes_fit_shared_memory():
     """Every block of the generator at full width fits one thread block's
-    shared memory where it runs the 32-row kernels of block_core.cu: K1 in
-    both storage types, K3 in f32 (bf16 K3 runs on k3_plan, held below)."""
-    shapes = [(3, 64, (2, 4)), (64, 128, (2, 4)), (128, 256, (2, 4)), (256, 512, (2, 4)),
-              (512, 1024, (2, 4)), (1024, 512, (4,)), (512, 256, (4,)), (256, 128, (4,)),
-              (128, 64, (4,))]
-    for c, p, itemsizes in shapes:
+    shared memory in the 32-row f32 check build of block_core.cu (K1 and K3
+    in f32; bf16 runs on fwd_plan, held below)."""
+    shapes = [(3, 64), (64, 128), (128, 256), (256, 512), (512, 1024), (1024, 512), (512, 256),
+              (256, 128), (128, 64)]
+    for c, p in shapes:
         cp, h4p, pp = bc._ceil16(c), bc._ceil16(4 * c), bc._ceil16(p)
-        hc = bc._hidden_chunk(h4p)
-        for itemsize in itemsizes:
-            assert bc.smem_bytes(itemsize, cp, hc, pp) <= bc.MAX_SMEM, (c, p, itemsize)
-    # c5 in f32: (1024 + 4 + 128 + 4) * 4 * 32 + (512 + 4) * 4 * 32 bytes
-    assert bc.smem_bytes(4, 512, 128, 1024) == 214528
+        assert bc.smem_bytes(cp, bc._hidden_chunk(h4p), pp) <= bc.MAX_SMEM, (c, p)
+    # c5: (1024 + 4 + 128 + 4 + 512 + 4) * 4 * 32 bytes
+    assert bc.smem_bytes(512, 128, 1024) == 214528
+
+
+# (site, H = W at 256x256, C, P) of the encoder's one-input blocks
+C_SITES = [("c1", 256, 3, 64), ("c2", 128, 64, 128), ("c3", 64, 128, 256), ("c4", 32, 256, 512),
+           ("c5", 16, 512, 1024)]
+# bf16 K1 per site at batch 1 and 16: (route, consumer warpgroups, output
+# columns a block, hidden chunk, ring stages, shared memory bytes, splits,
+# hidden chunks a slice)
+K1_PLANS = {
+    "c1": {1: ("narrow", 0, 0, 0, 0, 24128, 1, 0), 16: ("narrow", 0, 0, 0, 0, 24128, 1, 0)},
+    "c2": {1: ("fused", 2, 128, 128, 4, 83008, 1, 0), 16: ("fused", 2, 128, 128, 4, 83008, 1, 0)},
+    "c3": {1: ("fused", 1, 256, 64, 4, 148544, 1, 0), 16: ("fused", 2, 256, 64, 4, 164928, 1, 0)},
+    "c4": {1: ("two_pass", 1, 128, 128, 4, 132160, 8, 1),
+           16: ("two_pass", 2, 256, 128, 4, 197696, 2, 4)},
+    "c5": {1: ("two_pass", 1, 128, 128, 4, 132160, 16, 1),
+           16: ("two_pass", 2, 128, 128, 4, 197696, 4, 4)},
+}
+
+
+def _check_plan(plan, m, cp, h4p, pp):
+    """What every route's plan must satisfy: it fits shared memory, and its
+    work items cover the rows and the output (fused) or the hidden
+    (two_pass) columns."""
+    assert plan.smem <= bc.MAX_SMEM
+    if plan.route == "narrow":
+        assert cp == 16 and h4p == 16 and plan.smem == bc.narrow_smem_bytes(pp)
+        return
+    rows = 64 * plan.nwg
+    front = bc.fwd_smem_bytes(rows, cp, 64 if plan.route == "two_pass" else plan.pn, plan.hc,
+                              plan.stages)
+    assert plan.smem >= front
+    # 128-row tiles only where they take fewer waves of work items over the
+    # SMs than 64-row tiles: fused items are (row tile, column block),
+    # pass-1 items (row tile, hidden slice)
+    parts = plan.splits if plan.route == "fused" else -(-h4p // 128)
+    if plan.nwg == 2:
+        assert -(-(-(-m // 128) * parts) // bc.SMS) < -(-(-(-m // 64) * parts) // bc.SMS)
+    if plan.route == "fused":
+        assert plan.smem == front and plan.pn * plan.splits >= pp and plan.pn <= 256
+    else:
+        assert plan.hc == 128 and plan.cps * plan.splits >= -(-h4p // 128)
+        assert plan.cps * (plan.splits - 1) < -(-h4p // 128)  # no empty slice
+        assert plan.smem == max(front, bc.FWD_OUT_SMEM[plan.pn])
+
+
+@pytest.mark.parametrize("site,side,c,p", C_SITES, ids=[s[0] for s in C_SITES])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_fwd_plan_one_input_at_full_width(site, side, c, p, batch):
+    """The bf16 K1's route and tiles at each encoder site (mirroring
+    csrc/block_core2_fwd_sm90.cu): c1 (C = 3) on the narrow FMA kernel, c2
+    and c3 on the fused wgmma kernel (c2 at batch 1 on 128-row tiles: one
+    wave of 128 items rather than two of 256), c4 and c5 (P > 256) in two
+    passes."""
+    m, cp, h4p, pp = batch * side * side, bc._ceil16(c), bc._ceil16(4 * c), bc._ceil16(p)
+    plan = bc.fwd_plan(m, c, 0, h4p, pp)
+    assert tuple(plan) == K1_PLANS[site][batch]
+    _check_plan(plan, m, cp, h4p, pp)
 
 
 # (site, H = W at 256x256, C = both parts, P) of the decoder's blocks
 UC = [("uc1", 32, 1024, 512), ("uc2", 64, 512, 256), ("uc3", 128, 256, 128), ("uc4", 256, 128, 64)]
-# bf16 K3 per site at batch 1 and 16: (consumer warpgroups, output columns a
-# block, hidden chunk, ring stages, shared memory bytes, column splits)
+# bf16 K3 per site at batch 1 and 16, as K1_PLANS
 K3_PLANS = {
-    "uc1": {1: (1, 256, 64, 3, 230448, 2), 16: (1, 256, 64, 3, 230448, 2)},
-    "uc2": {1: (1, 256, 64, 4, 197696, 1), 16: (2, 256, 64, 3, 230448, 1)},
-    "uc3": {1: (1, 128, 128, 4, 99392, 1), 16: (2, 128, 128, 4, 132160, 1)},
-    "uc4": {1: (2, 64, 128, 4, 99392, 1), 16: (2, 64, 128, 4, 99392, 1)},
+    "uc1": {1: ("two_pass", 1, 128, 128, 4, 197696, 8, 4),
+            16: ("two_pass", 1, 256, 128, 4, 197696, 1, 32)},
+    "uc2": {1: ("fused", 1, 256, 64, 4, 197696, 1, 0), 16: ("fused", 2, 256, 64, 3, 230448, 1, 0)},
+    "uc3": {1: ("fused", 2, 128, 128, 4, 132160, 1, 0), 16: ("fused", 2, 128, 128, 4, 132160, 1, 0)},
+    "uc4": {1: ("fused", 2, 64, 128, 4, 99392, 1, 0), 16: ("fused", 2, 64, 128, 4, 99392, 1, 0)},
 }
 
 
@@ -150,26 +210,34 @@ K3_PLANS = {
 @pytest.mark.parametrize("batch", [1, 16])
 def test_k3_plan_at_full_width(site, side, c, p, batch):
     """The bf16 K3 kernel's tiles at each decoder site (mirroring
-    csrc/block_core2_fwd_sm90.cu): 128-row blocks where they fit shared
-    memory and fill the 132 SMs, 64 otherwise (uc1 always: its 1024-wide
-    input tile); P = 512 split over two blocks; the batch-1 grids of
-    uc2/uc3 on 64-row tiles."""
-    plan = bc.k3_plan(batch * side * side, bc._ceil16(c), bc._ceil16(p))
+    csrc/block_core2_fwd_sm90.cu): uc1 (P = 512) in two passes, on 64-row
+    tiles (its 1024-wide input tile); uc2-uc4 fused, on 128-row blocks
+    where they fit shared memory and take fewer waves than 64-row ones
+    (uc2 at batch 1 on 64: one wave either way)."""
+    m = batch * side * side
+    plan = bc.fwd_plan(m, c // 2, c // 2, 4 * c, p)
     assert tuple(plan) == K3_PLANS[site][batch]
-    assert plan.smem <= bc.MAX_SMEM
-    assert plan.smem == bc.k3_smem_bytes(64 * plan.nwg, c, plan.pn, plan.hc, plan.stages)
-    assert plan.pn * plan.splits >= p and plan.pn <= 256
-    rows = 64 * plan.nwg
-    blocks = -(-batch * side * side // rows) * plan.splits
-    assert blocks >= bc.SMS or plan.nwg == 1
+    _check_plan(plan, m, c, 4 * c, p)
 
 
 def test_k3_plan_raises_past_shared_memory():
     # 2048 input channels: the resident 64-row input tile alone is 256 KB
-    assert bc.k3_smem_bytes(64, 2048, 256, 64, 2) == 1024 + 32 * 64 * 128 + 2 * 32768 + 32
+    assert bc.fwd_smem_bytes(64, 2048, 256, 64, 2) == 1024 + 32 * 64 * 128 + 2 * 32768 + 32
+    m = 16 * 32 * 32
     with pytest.raises(ValueError, match="shared memory"):
-        bc.k3_plan(16 * 32 * 32, 2048, 512)
+        bc.fwd_plan(m, 1024, 1024, 8192, 256)
     # 1280 channels are the most that fit: 64 rows, two stages
-    assert bc.k3_plan(16 * 32 * 32, 1280, 512)[:4] == (1, 256, 64, 2)
+    assert bc.fwd_plan(m, 640, 640, 5120, 256)[:5] == ("fused", 1, 256, 64, 2)
     with pytest.raises(ValueError, match="shared memory"):
-        bc.k3_plan(16 * 32 * 32, 1344, 512)
+        bc.fwd_plan(m, 672, 672, 5376, 256)
+    # one input: the same tile, on both wgmma routes
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.fwd_plan(m, 2048, 0, 8192, 64)
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.fwd_plan(m, 2048, 0, 8192, 512)
+    # the narrow kernel keeps its weights and its output rows in shared
+    # memory: P is bounded, 320 + 84 * Pp + 128 * (2 * Pp + 16) bytes
+    assert bc.narrow_smem_bytes(672) == 2368 + 340 * 672 <= bc.MAX_SMEM
+    assert bc.fwd_plan(m, 3, 0, 16, 672).route == "narrow"
+    with pytest.raises(ValueError, match="shared memory"):
+        bc.fwd_plan(m, 3, 0, 16, 688)

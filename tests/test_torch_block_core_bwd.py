@@ -199,29 +199,27 @@ SITES = [("c1", (3,), 64), ("c2", (64,), 128), ("c3", (128,), 256), ("c4", (256,
 
 @pytest.mark.parametrize("site,parts,p", SITES, ids=[s[0] for s in SITES])
 def test_backward_tile_fits_shared_memory_at_full_width(site, parts, p):
-    """Every block's backward fits shared memory where it runs. The
-    32-row kernel of block_core_bwd.cu (K2, and K4 in f32): the wrapper's
-    gate (bwd_rows, mirroring row_smem_bytes) finds a row tile, 16 rows
-    only for c5/uc1 in f32. The bf16 K4 kernel (uc1-uc4): k4_plan's
-    128-row tiles, whose shared memory does not depend on C."""
+    """Every block's backward fits shared memory in the 32-row f32 check
+    build of block_core_bwd.cu (K2 and K4 in f32): the wrapper's gate
+    (bwd_rows, mirroring row_smem_bytes) finds a row tile, 16 rows only for
+    c5 and uc1. bf16 runs the Hopper kernel on k4_plan, held below."""
     cp = sum(bc._ceil16(c) for c in parts)
     h4p, pp = bc._ceil16(4 * sum(parts)), bc._ceil16(p)
     hc = bc._hidden_chunk(h4p)
-    for itemsize in (2, 4):
-        if itemsize == 2 and len(parts) == 2:
-            plan = bc.k4_plan(16, 32 * 32, cp, h4p, p, pp)
-            assert plan.smem == bc.K4_ROW_SMEM == 136256 <= bc.MAX_SMEM
-            continue
-        tm = bc.bwd_rows(itemsize, cp, hc, pp)
-        assert bc.bwd_smem_bytes(itemsize, tm, cp, hc, pp) <= bc.MAX_SMEM
-        small = site in ("c5", "uc1") and itemsize == 4
-        assert tm == (16 if small else 32), (site, itemsize, tm)
+    tm = bc.bwd_rows(cp, hc, pp)
+    assert bc.bwd_smem_bytes(tm, cp, hc, pp) <= bc.MAX_SMEM
+    assert tm == (16 if site in ("c5", "uc1") else 32), (site, tm)
 
 
-# bf16 K4 at batch 16 per decoder site (side of the 256x256 generator's
+# bf16 K2 / K4 at batch 16 per site (side of the 256x256 generator's
 # feature map, C, P): workspace bytes, and the row splits of the weight
 # pass's dW1 / dW2 / dWs products
-K4_PLANS = {"uc1": (32, 1024, 512, 416579584, (2, 3, 9)),
+K4_PLANS = {"c1": (256, 3, 64, 140325888, (261, 261, 261)),
+            "c2": (128, 64, 128, 373555200, (128, 128, 256)),
+            "c3": (64, 128, 256, 220463104, (64, 32, 128)),
+            "c4": (32, 256, 512, 137371648, (16, 9, 32)),
+            "c5": (16, 512, 1024, 105381888, (5, 3, 8)),
+            "uc1": (32, 1024, 512, 416579584, (2, 3, 9)),
             "uc2": (64, 512, 256, 734593024, (5, 9, 32)),
             "uc3": (128, 256, 128, 1407975424, (17, 33, 128)),
             "uc4": (256, 128, 64, 2746646528, (66, 66, 261))}
@@ -229,19 +227,20 @@ K4_PLANS = {"uc1": (32, 1024, 512, 416579584, (2, 3, 9)),
 
 @pytest.mark.parametrize("site", list(K4_PLANS))
 def test_k4_plan_at_full_width(site):
-    """The bf16 K4 kernel's plan (mirroring make_plan in
+    """The plan of the bf16 K2 / K4 kernel (mirroring make_plan in
     csrc/block_core2_bwd_sm90.cu): 128-row tiles that never cross an
     image, a weight pass split to give each of the 132 SMs a block or more, and
     the workspace: a and x side by side, ag and dg1, the partial sums."""
     side, c, p, nbytes, splits = K4_PLANS[site]
     hw = side * side
-    plan = bc.k4_plan(16, hw, c, 4 * c, p, p)
+    cp, h4p, pp = bc._ceil16(c), bc._ceil16(4 * c), bc._ceil16(p)
+    plan = bc.k4_plan(16, hw, cp, h4p, p, pp)
     assert plan.timg == hw // 128 and plan.tiles == 16 * hw // 128 and not plan.gcopy
     assert plan.workspace == nbytes
     assert tuple(j.nsplit for j in plan.jobs) == splits
     m = 16 * hw
     # the scratch (a, x, ag, dg1) is most of it
-    assert plan.workspace >= m * (2 * c + 8 * c) * 2
+    assert plan.workspace >= m * (2 * cp + 2 * h4p) * 2
     for job in plan.jobs:
         tiles = -(-job.rows // 128) * -(-job.cols // job.bn)
         assert job.rps % 64 == 0 and job.nsplit == -(-m // job.rps)
@@ -257,7 +256,7 @@ def test_k4_plan_pads_g_and_raises_past_its_indices():
 
 
 def test_backward_gate_raises_past_shared_memory():
-    # uc1 bf16, 16 rows: 16 * ((1028 + 2 * 132) * 4 + (1032 + 520 + 136) * 2) bytes
-    assert bc.bwd_smem_bytes(2, 16, 1024, 128, 512) == 136704
+    # uc1, 16 rows: 16 * 4 * (1028 + 2 * 132 + 1028 + 516) bytes
+    assert bc.bwd_smem_bytes(16, 1024, 128, 512) == 181504
     with pytest.raises(ValueError, match="shared memory"):
-        bc.bwd_rows(4, 2048, 128, 2048)
+        bc.bwd_rows(2048, 128, 2048)

@@ -1,9 +1,10 @@
-"""The port's CUDA kernels on the card: K1 and K3 (``csrc/block_core.cu``;
-bf16 K3 in ``csrc/block_core2_fwd_sm90.cu``) and K2 and K4
-(``csrc/block_core_bwd.cu``; bf16 K4 in ``csrc/block_core2_bwd_sm90.cu``)
-against their plain PyTorch versions at shapes the generator never gives
-them (ragged row tiles, widths that are not multiples of 16, unequal
-parts) and at the decoder's full channel widths, the wrappers' refusals,
+"""The port's CUDA kernels on the card: K1 and K3 (bf16 in
+``csrc/block_core2_fwd_sm90.cu``, f32 in ``csrc/block_core.cu``) and K2 and
+K4 (bf16 in ``csrc/block_core2_bwd_sm90.cu``, f32 in
+``csrc/block_core_bwd.cu``) against their plain PyTorch versions at shapes
+the generator never gives them (ragged row tiles, widths that are not
+multiples of 16, unequal parts) and at every site's full channel widths,
+on each route of the bf16 forward, the wrappers' refusals,
 the launch counters, and the generator's kernel path against its plain
 path, forward and backward. Each test needs a CUDA card and
 skips without one. On the card (no JAX needed, hence ``--noconftest``):
@@ -57,8 +58,18 @@ def _assert_close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+# the encoder's sites c1-c5 at full channel width on 12 x 12 pixels (288
+# rows: no whole number of 128-row tiles; c1 narrow, c2 and c3 fused, c4 and
+# c5 two-pass), and c2's and c4's widths on enough rows for the
+# two-warpgroup tiles and (c4) 256-wide pass-2 blocks
+C_SHAPES = [(2, 12, 12, 3, 64), (2, 12, 12, 64, 128), (2, 12, 12, 128, 256),
+            (2, 12, 12, 256, 512), (2, 12, 12, 512, 1024), (2, 100, 99, 64, 128),
+            (2, 66, 66, 256, 512)]
+
+
 @pytest.mark.parametrize("dtype,gelu", FLAVOURS)
-@pytest.mark.parametrize("b,h,w,c,p", [(2, 5, 7, 3, 40), (1, 9, 9, 48, 24), (3, 4, 4, 17, 64)])
+@pytest.mark.parametrize("b,h,w,c,p", [(2, 5, 7, 3, 40), (1, 9, 9, 48, 24), (3, 4, 4, 17, 64)]
+                         + C_SHAPES)
 def test_k1_matches_plain(cuda, dtype, gelu, b, h, w, c, p):
     rng = np.random.default_rng(c * 100 + p)
     hh, x = _act(rng, b, c, h, w, dtype), _act(rng, b, c, h, w, dtype)
@@ -128,10 +139,12 @@ def test_wrappers_raise_rather_than_fall_back(cuda):
         bc.block_core_bwd(h, x, *stats, g.contiguous(), ws[0], ws[1], ws[2], ws[4])
     with pytest.raises(ValueError, match="cotangent"):
         bc.block_core_bwd(h, x, *stats, g[:, :8], ws[0], ws[1], ws[2], ws[4])
+    # the f32 check build's row tile grows with C (bf16 K2's does not)
+    f32 = torch.float32
     with pytest.raises(ValueError, match="shared memory"):
-        wide = _weights(rng, 2048, 2048, dtype)
-        hw_, xw = _act(rng, 1, 2048, 2, 2, dtype), _act(rng, 1, 2048, 2, 2, dtype)
-        bc.block_core_bwd(hw_, xw, *instance_stats(hw_), _act(rng, 1, 2048, 2, 2, dtype),
+        wide = _weights(rng, 2048, 2048, f32)
+        hw_, xw = _act(rng, 1, 2048, 2, 2, f32), _act(rng, 1, 2048, 2, 2, f32)
+        bc.block_core_bwd(hw_, xw, *instance_stats(hw_), _act(rng, 1, 2048, 2, 2, f32),
                           wide[0], wide[1], wide[2], wide[4])
 
 
@@ -184,7 +197,7 @@ def _assert_bwd_close(got, want, dtype, names):
 
 @pytest.mark.parametrize("dtype,gelu", FLAVOURS)
 @pytest.mark.parametrize("b,h,w,c,p", [(2, 5, 7, 3, 40), (1, 9, 9, 48, 24), (3, 4, 4, 17, 64),
-                                       (2, 33, 31, 64, 64)])
+                                       (2, 33, 31, 64, 64)] + C_SHAPES[:5])
 def test_k2_matches_plain(cuda, dtype, gelu, b, h, w, c, p):
     rng = np.random.default_rng(c * 100 + p + 1)
     hh, x, g = _act(rng, b, c, h, w, dtype), _act(rng, b, c, h, w, dtype), _act(rng, b, p, h, w, dtype)
@@ -212,7 +225,8 @@ def test_k4_matches_plain(cuda, dtype, gelu, b, h, w, c1, c2, p):
 
 
 def test_backward_repeats_bit_for_bit(cuda):
-    """Every sum of K4 is taken in one fixed order: two calls agree exactly."""
+    """Every sum of K2 and K4 is taken in one fixed order: two calls agree
+    exactly."""
     rng = np.random.default_rng(12)
     dtype = torch.bfloat16
     parts = [_act(rng, 2, 32, 24, 24, dtype) for _ in range(4)]
@@ -222,11 +236,17 @@ def test_backward_repeats_bit_for_bit(cuda):
     one = bc.block_core2_bwd(*parts, *stats, g, w1, b1, w2, ws)
     two = bc.block_core2_bwd(*parts, *stats, g, w1, b1, w2, ws)
     assert all(torch.equal(a, b) for a, b in zip(one, two))
+    h, x = _act(rng, 2, 64, 24, 24, dtype), _act(rng, 2, 64, 24, 24, dtype)
+    stats = instance_stats(h)
+    one = bc.block_core_bwd(h, x, *stats, g, w1, b1, w2, ws)
+    two = bc.block_core_bwd(h, x, *stats, g, w1, b1, w2, ws)
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
 def test_hopper_kernels_refuse_what_their_plans_cannot_take(cuda):
-    """The bf16 K3 / K4 gates: K3's resident 64-row input tile past shared
-    memory (2048 input channels), and a pack without the transposes."""
+    """The bf16 gates, one part and two: the wgmma forward's resident
+    64-row input tile past shared memory (2048 input channels), and a pack
+    without the transposes."""
     rng = np.random.default_rng(14)
     dtype = torch.bfloat16
     parts = [_act(rng, 1, 1024, 2, 2, dtype) for _ in range(4)]
@@ -243,6 +263,21 @@ def test_hopper_kernels_refuse_what_their_plans_cannot_take(cuda):
     with pytest.raises(ValueError, match="transposes"):
         bc.block_core2_bwd(*small, *stats, _act(rng, 1, 16, 4, 4, dtype), w[0], w[1], w[2], w[4],
                            packed=bare)
+    # one input: 2048 channels, on the fused (P = 64) and two-pass (P = 512) routes
+    h, x = _act(rng, 1, 2048, 2, 2, dtype), _act(rng, 1, 2048, 2, 2, dtype)
+    for p in (64, 512):
+        w1, b1, w2, b2, ws = _weights(rng, 2048, p, dtype)
+        with pytest.raises(ValueError, match="shared memory"):
+            bc.block_core(h, x, *instance_stats(h), w1, b1, w2, b2, ws)
+    # one input without the transposes (32 channels: the wgmma routes)
+    h, x = _act(rng, 1, 32, 4, 4, dtype), _act(rng, 1, 32, 4, 4, dtype)
+    w = _weights(rng, 32, 16, dtype)
+    bare = bc.pack_weights(*w, dtype)._replace(w1t=None, w2t=None, wst=None)
+    with pytest.raises(ValueError, match="transposes"):
+        bc.block_core(h, x, *instance_stats(h), *w, packed=bare)
+    with pytest.raises(ValueError, match="transposes"):
+        bc.block_core_bwd(h, x, *instance_stats(h), _act(rng, 1, 16, 4, 4, dtype), w[0], w[1],
+                          w[2], w[4], packed=bare)
 
 
 def test_autograd_runs_k1_k2_and_counts_once_each(cuda):
