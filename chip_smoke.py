@@ -39,15 +39,28 @@ Phases, each of which fails the run:
      and over the whole generator (where bf16 rounding accumulates along
      the backward) the median and the distance to the f32 gradient, with
      faulty controls that the gate must refuse;
-  7. one JSON line of kernel numbers, then the result line.
+  7. the train and eval CLIs, in-process through their ``main(argv)``, on
+     a synthetic aligned dataset written from a numpy seed (48 + 4 pairs
+     of 256x256 PNGs): train 2 epochs of 3 steps at the default recipe
+     (batch 16, pool 50, print_freq 1), resume it for a third epoch from
+     the epoch 2 checkpoint, evaluate epoch 3 on 4 images; counters set to
+     0 before each: 5 K1 + 4 K3 + 5 K2 + 4 K4 launches per CLI train step
+     and 5 K1 + 4 K3 per eval forward, finite losses, the checkpoints and
+     the files of the JAX CLIs, the resumed step counter and LR, a
+     ``metrics.csv`` mean row; one ``cli_train`` and one ``cli_eval``
+     line of host times;
+  8. one JSON line of kernel numbers, then the result line.
 
 ``--out DIR`` also writes the per-shape numbers to DIR/chip_smoke.json.
 """
 
 import argparse
+import csv
 import json
+import math
 import os
 import sys
+import tempfile
 import time
 
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -56,6 +69,9 @@ TOL_F32 = dict(rtol=2e-4, atol=2e-4)
 TOL_BWD = {"bfloat16": dict(elem=(2e-2, 2e-2), scaled=False, rel_l2=1e-2, max_abs=2e-2),
            "float32": dict(elem=(1e-3, 1e-3), scaled=True, rel_l2=None, max_abs=1e-3)}
 TRAIN = dict(batch=16, size=256, warmup=2, steps=5)
+# the CLI phase: pairs written per phase, the first steps of each train run
+# left out of its times
+CLI = dict(train_pairs=48, test_pairs=4, batch=16, size=256, warmup=2)
 # the train step's G gradient, kernel path vs plain path: rel-L2 of each K2/K4
 # output at block level; median over the block weights of the whole
 # generator; kernel path's median distance to the f32 gradient over the plain
@@ -649,6 +665,157 @@ def train_phase(torch, np, bc, card):
     return res, launches
 
 
+def write_dataset(np, root):
+    """An aligned dataset from a numpy seed: train_all/ and test_all/ with
+    a_* (A) and b_* (B) 256x256 RGB PNGs, paired by the half-split."""
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    for phase, n in (("train_all", CLI["train_pairs"]), ("test_all", CLI["test_pairs"])):
+        d = os.path.join(root, phase)
+        os.makedirs(d)
+        for side in "ab":
+            for i in range(n):
+                img = rng.integers(0, 256, (CLI["size"], CLI["size"], 3), dtype=np.uint8)
+                Image.fromarray(img).save(os.path.join(d, f"{side}_{i:02d}.png"))
+
+
+def _cli_launches(bc, steps, forwards, what):
+    got = read_counts(bc)
+    want = {"K1": 5 * (steps + forwards), "K3": 4 * (steps + forwards), "K2": 5 * steps,
+            "K4": 4 * steps}
+    if got != want:
+        fail(f"{what}: launch counts {got} after {steps} train steps and {forwards} forwards: "
+             f"want 5 K1 + 4 K3 + 5 K2 + 4 K4 a step, 5 K1 + 4 K3 a forward")
+    return got
+
+
+def _finite_log(path):
+    """Every loss, SSIM and PSNR of result.csv, as floats."""
+    vals = []
+    with open(path) as f:
+        for epoch, message, ssim, psnr in csv.reader(f):
+            vals += [float(v) for v in message.split()[1::2]] + [float(ssim), float(psnr)]
+    return vals
+
+
+def _best_ms(fn, repeats=3):
+    best = float("inf")
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def host_split(torch, eval_cli, train_model, eval_model, tmp):
+    """Where the CLIs' host time goes, each part alone on the main thread
+    (best of 3): one train batch's decode and augmentation (16 items of
+    the train dataset, no threads), and the parts of one eval image: the
+    forward to a synchronized result, the visuals' fetch, the float64
+    SSIM + PSNR, the CPU MS-SSIM, the three gallery PNGs."""
+    from dsgan_tpu_torch import ops
+    from dsgan_tpu_torch.data import CreateDataset
+    from dsgan_tpu_torch.utils.util import save_image
+
+    ds = CreateDataset(train_model.opt)
+    batch = CLI["batch"]
+    out = dict(decode_batch_ms=_best_ms(lambda: [ds.__getitem__(i, i) for i in range(batch)]))
+
+    def forward():
+        eval_model.test()
+        torch.cuda.synchronize()
+
+    out["eval_forward_ms"] = _best_ms(forward)
+    out["eval_visuals_ms"] = _best_ms(eval_model.get_current_visuals)
+    vis = eval_model.get_current_visuals()
+    real, fake = vis["real_B"], vis["fake_B"]
+    out["eval_ssim_psnr_ms"] = _best_ms(
+        lambda: (ops.ssim_ref(real, fake), ops.psnr_ref(real, fake)))
+    out["eval_ms_ssim_ms"] = _best_ms(
+        lambda: ops.ms_ssim(eval_cli._nchw(real), eval_cli._nchw(fake), data_range=255))
+    out["eval_png_ms"] = _best_ms(
+        lambda: [save_image(v, os.path.join(tmp, f"{k}.png")) for k, v in vis.items()])
+    return out
+
+
+def cli_phase(torch, np, bc, card):
+    """Drive ``python -m dsgan_tpu_torch.train`` and ``.test`` in-process at
+    full width and prove every CLI step and forward ran its kernels."""
+    from dsgan_tpu_torch import test as eval_cli
+    from dsgan_tpu_torch import train as train_cli
+
+    with tempfile.TemporaryDirectory(prefix="dsgan_cli_") as tmp:
+        data, ckpt = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
+        t0 = time.perf_counter()
+        write_dataset(np, data)
+        write_s = time.perf_counter() - t0
+        base = ["--dataroot", data, "--checkpoints_dir", ckpt, "--name", "cli"]
+        train = base + ["--batchSize", str(CLI["batch"]), "--print_freq", "1", "--pool_size", "50"]
+
+        zero_counts(bc)
+        model, run1 = train_cli.main(train + ["--niter", "1", "--niter_decay", "1"])
+        torch.cuda.synchronize()
+        launches = {"train": _cli_launches(bc, len(run1), 0, "train CLI")}
+        if len(run1) != 6 or model.state.step != 6:
+            fail(f"train CLI: {len(run1)} steps, step counter {model.state.step}: want 6")
+
+        zero_counts(bc)
+        model, run2 = train_cli.main(train + ["--continue_train", "--which_epoch", "2",
+                                              "--epoch_count", "3", "--niter", "2",
+                                              "--niter_decay", "1"])
+        torch.cuda.synchronize()
+        launches["resume"] = _cli_launches(bc, len(run2), 0, "resumed train CLI")
+        # the epoch 2 checkpoint holds the schedule position of epoch 2 (1),
+        # which the lambda rule counts beside --epoch_count, as JAX's does
+        lr_want = 2e-4 * (1.0 - max(0, 1 + 1 + 3 - 2) / float(1 + 1))
+        lrs = sorted({r[1] for r in run2})
+        if len(run2) != 3 or model.state.step != 9 or lrs != [lr_want]:
+            fail(f"resumed train CLI: {len(run2)} steps, step counter {model.state.step} (want "
+                 f"3 and 9), LR {lrs} (want {lr_want})")
+        # both runs append to result.csv: 9 lines of 4 losses, SSIM and PSNR
+        losses = _finite_log(os.path.join(ckpt, "cli", "result.csv"))
+        if len(losses) != 9 * 6 or not all(math.isfinite(v) for v in losses):
+            fail(f"CLI losses not all finite: {losses}")
+        out = os.path.join(ckpt, "cli")
+        missing = [f for f in ("epoch_1", "epoch_2", "epoch_3", "result.csv", "each_epoch.csv",
+                               "opt.txt", "loss_log.txt", "train_img/train_Re3_3.png")
+                   if not os.path.exists(os.path.join(out, f))]
+        if missing:
+            fail(f"train CLI did not write {missing}")
+
+        zero_counts(bc)
+        results = os.path.join(tmp, "results")
+        ev_model, rows = eval_cli.main(base + ["--which_epoch", "3", "--how_many",
+                                               str(CLI["test_pairs"]), "--results_dir", results])
+        torch.cuda.synchronize()
+        launches["eval"] = _cli_launches(bc, 0, len(rows), "eval CLI")
+        with open(os.path.join(results, "cli", "test_all", "_3", "metrics.csv")) as f:
+            mean = list(csv.reader(f))[-1]
+        if len(rows) != CLI["test_pairs"] or mean[0] != "mean" or not all(
+                math.isfinite(float(v)) for v in mean[2:]):
+            fail(f"eval CLI: {len(rows)} rows, mean row {mean}")
+        split = host_split(torch, eval_cli, model, ev_model, tmp)
+
+    timed = [r for run in (run1, run2) for r in run[CLI["warmup"]:]]
+    wait, step, fetch = (sum(r[i] for r in timed) for i in (2, 3, 4))
+    total = wait + step + fetch
+    res = dict(batch=CLI["batch"], size=CLI["size"], steps_timed=len(timed),
+               img_per_s=CLI["batch"] * len(timed) / total, step_ms=total / len(timed) * 1e3,
+               loader_wait_ms=wait / len(timed) * 1e3, loader_wait_share=wait / total,
+               dispatch_ms=step / len(timed) * 1e3, print_ms=fetch / len(timed) * 1e3,
+               steps=[[round(v * 1e3, 3) for v in r[2:]] for run in (run1, run2) for r in run],
+               launches=launches, resumed_lr=lr_want, dataset_write_s=write_s, card=card)
+    print(json.dumps({"cli_train": res}))
+    ev = dict(images=len(rows), ms_per_image=sum(r["ms"] for r in rows[1:]) / (len(rows) - 1),
+              first_image_ms=rows[0]["ms"], ms=[r["ms"] for r in rows],
+              mean_ssim=float(mean[2]), mean_psnr=float(mean[3]), mean_ms_ssim=float(mean[4]),
+              host_split_ms=split, card=card)
+    print(json.dumps({"cli_eval": ev}))
+    total_launches = {k: sum(v[k] for v in launches.values()) for k in ("K1", "K2", "K3", "K4")}
+    return dict(train=res, eval=ev), total_launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card check of dsgan_tpu_torch")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json")
@@ -696,6 +863,7 @@ def main(argv=None):
     serving, serve_launches, agree = serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G,
                                                  card)
     training, train_launches = train_phase(torch, np, bc, card)
+    cli, cli_launches = cli_phase(torch, np, bc, card)
 
     kernels = []
     for name, src_fn, line, src, table in (
@@ -709,7 +877,7 @@ def main(argv=None):
         kernels.append(dict(
             name=f"{name} {src_fn}", route="cuda", source=f"dsgan_tpu_torch/csrc/{src}",
             replaces=f"dsgan_tpu/pallas/block_core.py:{line}",
-            launches=serve_launches[name] + train_launches[name],
+            launches=serve_launches[name] + train_launches[name] + cli_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in bf16),
             ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
             bound_ms=sum(r["bound_ms"] for r in main),
@@ -719,7 +887,8 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
-                           generator_agreement=agree, training=training, kernels=kernels,
+                           generator_agreement=agree, training=training, cli=cli,
+                           kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

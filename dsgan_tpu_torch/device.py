@@ -29,7 +29,19 @@ def resolve_device(device=None):
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch path on the CPU"
+            "no CUDA device is available; pass device='cpu' (on the train and "
+            "eval command lines: --platform cpu) to run the plain PyTorch path "
+            "on the CPU"
         )
     return dev
+
+
+def platform_device(platform=""):
+    """The CLIs' ``--platform``: empty, ``gpu`` or ``cuda`` is the card
+    (``resolve_device`` raises without one), ``cpu`` the CPU."""
+    name = (platform or "").lower()
+    if name in ("", "gpu", "cuda"):
+        return resolve_device(None)
+    if name == "cpu":
+        return resolve_device("cpu")
+    raise ValueError(f"--platform {platform!r}: the port runs on 'gpu' (or 'cuda') or 'cpu'")

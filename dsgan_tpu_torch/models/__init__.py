@@ -1,14 +1,18 @@
 """Models of the port: the MixConvNeXtML generator, the PatchGAN
-discriminator, the VGG16 perceptual features and the pix2pix train step."""
+discriminator, the VGG16 perceptual features, the pix2pix train step and
+the model shells the CLIs create by name (``pix2pix``, ``test``)."""
 
 from dsgan_tpu_torch.models.registry import (
+    create_model,
     define_D,
     define_G,
     define_vgg,
+    find_model_using_name,
+    get_option_setter,
     init_d_params,
     init_params,
     init_vgg_params,
 )
 
-__all__ = ["define_D", "define_G", "define_vgg", "init_d_params", "init_params",
-           "init_vgg_params"]
+__all__ = ["create_model", "define_D", "define_G", "define_vgg", "find_model_using_name",
+           "get_option_setter", "init_d_params", "init_params", "init_vgg_params"]

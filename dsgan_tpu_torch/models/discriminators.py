@@ -7,9 +7,11 @@ parameter-free InstanceNorm the convs sit at ``model.0, 2, 5, 8, 11``, so
 port ``state_dict`` and ``utils.convert.d_state_dict_from_jax`` is its
 inverse. Parameters stay in f32; the forward computes in
 ``compute_dtype`` (None: the input's dtype) with the weights cast at use,
-and returns raw logits in the input's dtype.
+and returns raw logits in the input's dtype (their sigmoid with
+``use_sigmoid``, the reference's ``--no_lsgan`` discriminator).
 """
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -29,9 +31,10 @@ class NLayerDiscriminator(nn.Module):
     last; LeakyReLU 0.2. With ndf = 32 and a conditional 6-channel 256x256
     input it gives 30x30 patch logits."""
 
-    def __init__(self, input_nc, ndf=32, n_layers=3, compute_dtype=None):
+    def __init__(self, input_nc, ndf=32, n_layers=3, compute_dtype=None, use_sigmoid=False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.use_sigmoid = use_sigmoid
         layers = [nn.Conv2d(input_nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
         mult = 1
         for n in range(1, n_layers):
@@ -51,4 +54,6 @@ class NLayerDiscriminator(nn.Module):
                 h = F.conv2d(h, m.weight.to(h.dtype), m.bias.to(h.dtype), m.stride, m.padding)
             else:
                 h = m(h)
+        if self.use_sigmoid:
+            h = torch.sigmoid(h)
         return h.to(in_dtype)

@@ -1,14 +1,17 @@
-"""The pix2pix train step, the DS-GAN trainer (port of
-``dsgan_tpu/models/pix2pix.py``: ``Pix2PixConfig``, the train state and
-``make_train_step``; reference DSGAN/models/pix2pix_model.py:138-217).
+"""The pix2pix trainer, DS-GAN's (port of ``dsgan_tpu/models/pix2pix.py``:
+``Pix2PixConfig``, the train state, ``make_train_step`` and the
+``Pix2PixModel`` shell the CLIs drive; reference DSGAN/models/
+pix2pix_model.py:138-217).
 
-One step of the default recipe (conditional D, vanilla GAN loss), in the
-JAX package's order:
+One step, in the JAX package's order (the default recipe: conditional D,
+vanilla GAN loss):
   1. normalize the uint8 inputs; one G forward, its graph kept;
-  2. the replay-pool query on the conditional [A, fake] pairs;
+  2. the replay-pool query on the conditional [A, fake] pairs (the fake
+     alone with ``use_condition`` off);
   3. the D update on the stacked [fake; real] batch (one D application;
      valid for D's per-sample norms):
-     0.5 * (GAN(D(fake), 0) + GAN(D(real), 1)), one Adam step;
+     0.5 * (GAN(D(fake), 0) + GAN(D(real), 1)), one Adam step; with
+     ``use_gan`` off, no D update and the D losses are 0;
   4. the G loss against the *updated* D: GAN * w_gan + L1 + VGG * w_vgg +
      TV * w_tv + w_ss * (1 - SSIM), with the target's VGG features under
      ``no_grad``; its gradient with respect to the fake image only, so
@@ -23,11 +26,20 @@ computes. Every metric stays a device tensor: a step never syncs.
 """
 
 import dataclasses
+import warnings
 from typing import Any, Optional
 
 import torch
 
 from dsgan_tpu_torch import ops
+from dsgan_tpu_torch.models.base_model import BaseModel
+from dsgan_tpu_torch.models.registry import define_D, define_G, define_vgg
+from dsgan_tpu_torch.utils import checkpoint as ckpt
+from dsgan_tpu_torch.utils.convert import (
+    load_params_npz,
+    load_torchvision_npz,
+    state_dict_from_jax,
+)
 from dsgan_tpu_torch.utils.image_pool import ImagePool
 
 CL = torch.channels_last
@@ -35,6 +47,9 @@ CL = torch.channels_last
 
 @dataclasses.dataclass(frozen=True)
 class Pix2PixConfig:
+    gan_mode: str = "vanilla"       # 'vanilla' | 'lsgan' | 'bce'
+    use_gan: bool = True
+    use_condition: bool = True
     pool_size: int = 50
     w_gan: float = 0.01
     w_vgg: float = 1.0
@@ -86,19 +101,30 @@ def images(x, dtype):
 
 
 def _target_levels(raw, real_B):
-    """The target's pixel levels for the metrics: a uint8 target's own
-    levels, else ``quantize_uint8`` of the image the step trained on."""
-    if raw.dtype == torch.uint8:
+    """The target's pixel levels for the metrics, as JAX's jitted step
+    gives them: in f32 XLA fuses normalize -> quantize and a uint8 target
+    keeps its own levels; in a narrower compute dtype it quantizes the
+    target the step trained on (bf16 puts 127 of the 256 levels one
+    below their own)."""
+    if raw.dtype == torch.uint8 and real_B.dtype == torch.float32:
         return raw.permute(0, 3, 1, 2).float()
     return ops.quantize_uint8(real_B)
+
+
+def d_input(cfg, real_A, img):
+    """What D sees of an image: the [A, image] pair, or the image alone."""
+    return torch.cat([real_A, img], 1) if cfg.use_condition else img
 
 
 def generator_loss(cfg, state, real_A, real_B, fake, feats_real):
     """The G loss terms (reference backward_G, pix2pix_model.py:164-199) of
     ``fake`` against the current D, under the JAX step's names;
     ``feats_real``: the target's VGG taps, or None without the VGG term."""
-    aux = {"loss_vgg": torch.zeros((), device=fake.device)}
-    aux["loss_G_GAN"] = ops.gan_loss(state.netD(torch.cat([real_A, fake], 1)), True, "vanilla")
+    zero = torch.zeros((), device=fake.device)
+    aux = {"loss_vgg": zero, "loss_G_GAN": zero}
+    if cfg.use_gan:
+        aux["loss_G_GAN"] = ops.gan_loss(state.netD(d_input(cfg, real_A, fake)), True,
+                                         cfg.gan_mode)
     aux["loss_G_L1"] = ops.l1_loss(fake, real_B)
     if feats_real is not None:
         aux["loss_vgg"] = ops.perceptual_loss(state.vgg(fake), feats_real, num_taps=4)
@@ -122,17 +148,21 @@ def make_train_step(cfg: Pix2PixConfig):
         fake = state.netG(real_A)
         fake_sg = fake.detach()
 
-        fake_AB = state.pool.query(torch.cat([real_A, fake_sg], 1))
-        real_AB = torch.cat([real_A, real_B], 1)
-        both = state.netD(torch.cat([fake_AB, real_AB], 0))
-        loss_fake = ops.gan_loss(both[:fake_AB.shape[0]], False, "vanilla")
-        loss_real = ops.gan_loss(both[fake_AB.shape[0]:], True, "vanilla")
-        loss_D = 0.5 * (loss_fake + loss_real)
-        state.opt_D.zero_grad(set_to_none=True)
-        loss_D.backward()
-        set_lr(state.opt_D, lr)
-        state.opt_D.step()
-        metrics = dict(loss_D=loss_D, loss_D_fake=loss_fake, loss_D_real=loss_real)
+        if cfg.use_gan:
+            fake_AB = state.pool.query(d_input(cfg, real_A, fake_sg))
+            real_AB = d_input(cfg, real_A, real_B)
+            both = state.netD(torch.cat([fake_AB, real_AB], 0))
+            loss_fake = ops.gan_loss(both[:fake_AB.shape[0]], False, cfg.gan_mode)
+            loss_real = ops.gan_loss(both[fake_AB.shape[0]:], True, cfg.gan_mode)
+            loss_D = 0.5 * (loss_fake + loss_real)
+            state.opt_D.zero_grad(set_to_none=True)
+            loss_D.backward()
+            set_lr(state.opt_D, lr)
+            state.opt_D.step()
+            metrics = dict(loss_D=loss_D, loss_D_fake=loss_fake, loss_D_real=loss_real)
+        else:
+            zero = torch.zeros((), device=fake.device)
+            metrics = dict(loss_D=zero, loss_D_fake=zero, loss_D_real=zero)
 
         feats_real = None
         if cfg.use_vgg and state.vgg is not None:
@@ -159,3 +189,133 @@ def make_train_step(cfg: Pix2PixConfig):
         return metrics, fake_sg.detach().permute(0, 2, 3, 1).float()
 
     return step
+
+
+class Pix2PixModel(BaseModel):
+    """The shell over the step: options -> networks -> state -> step
+    (``dsgan_tpu/models/pix2pix.py:276-573``)."""
+
+    def name(self):
+        return "Pix2PixModel"
+
+    @staticmethod
+    def modify_commandline_options(parser, is_train=True):
+        if is_train:
+            parser.add_argument("--lambda_L1", type=float, default=100.0,
+                                help="weight for L1 loss (parity flag; unused by the loss, as "
+                                     "in reference pix2pix_model.py:70)")
+        return parser
+
+    def initialize(self, opt):
+        BaseModel.initialize(self, opt)
+        self.loss_names = ["G_GAN", "G_L1", "D_real", "D_fake"]
+        self.visual_names = ["real_A", "fake_B", "real_B"]
+        dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
+        self.compute_dtype = dtype if dtype == torch.bfloat16 else None
+        dev = self.device
+        self.netG = define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.which_model_netG,
+                             dtype=dtype, device=dev, gelu_mode=opt.gelu, seed=opt.seed,
+                             train=True)
+        self.state = None
+        if not self.isTrain:
+            self.netG.eval()
+            return
+        d_input_nc = opt.input_nc + opt.output_nc if opt.use_condition == 1 else opt.output_nc
+        # GANLoss(use_lsgan=opt.no_lsgan), as the reference wires it: by
+        # default BCE-with-logits on raw logits; --no_lsgan gives D a
+        # sigmoid and the MSE criterion
+        self.netD = define_D(d_input_nc, opt.ndf, opt.which_model_netD, opt.n_layers_D,
+                             dtype=dtype, device=dev, seed=opt.seed + 1, use_sigmoid=opt.no_lsgan)
+        use_vgg = float(opt.w_vgg) != 0.0
+        vgg = None
+        if use_vgg:
+            params = load_torchvision_npz(opt.vgg_weights) if opt.vgg_weights else None
+            if params is None:
+                warnings.warn(
+                    "--vgg_weights not given: the perceptual loss runs on random VGG16 "
+                    "features, a different objective from the reference's pretrained "
+                    "torchvision loss (DSGAN/models/vgg.py:5-28). Write the torchvision "
+                    "weights once, on a machine with torchvision:\n"
+                    "  python -c \"import numpy, torchvision; numpy.savez('vgg16.npz', "
+                    "**{k: v.numpy() for k, v in torchvision.models.vgg16(weights="
+                    "'IMAGENET1K_V1').state_dict().items()})\"\n"
+                    "then pass --vgg_weights vgg16.npz (or silence this with --w_vgg 0).",
+                    stacklevel=2)
+            vgg = define_vgg(4, dtype=dtype, device=dev, params=params, seed=opt.seed + 2)
+        self.cfg = Pix2PixConfig(
+            gan_mode="lsgan" if opt.no_lsgan else "vanilla",
+            use_gan=int(opt.use_GAN) == 1,
+            use_condition=int(opt.use_condition) == 1,
+            pool_size=opt.pool_size,
+            w_gan=float(opt.w_gan), w_vgg=float(opt.w_vgg), w_tv=float(opt.w_tv),
+            w_ss=float(opt.w_ss), use_vgg=use_vgg, beta1=opt.beta1,
+            compute_dtype=self.compute_dtype)
+        self.state = init_state(self.netG, self.netD, vgg, self.cfg,
+                                (opt.fineSize_h, opt.fineSize_w), d_input_nc, seed=opt.seed)
+        self._step_fn = make_train_step(self.cfg)
+
+    # -- data in -----------------------------------------------------------
+    def set_input(self, input):
+        """Place the loader's batch on the device; the host arrays stay for
+        the visuals and the anomaly dump."""
+        a, b = ("A", "B") if self.opt.which_direction == "AtoB" else ("B", "A")
+        self.real_A_host = input[a]
+        self.real_A = self._place_batch(input[a])
+        if b in input:
+            self.real_B_host = input[b]
+            self.real_B = self._place_batch(input[b])
+
+    # -- step --------------------------------------------------------------
+    def optimize_parameters(self):
+        self._metrics, self.fake_B = self._step_fn(self.state, self.real_A, self.real_B, self.lr)
+        self._host_metrics = None
+
+    def forward(self):
+        """The generator on real_A in eval mode, without a graph:
+        fake_B is (B, H, W, C) f32 on the device."""
+        was_training = self.netG.training
+        self.netG.eval()
+        with torch.no_grad():
+            y = self.netG(images(self.real_A, self.compute_dtype))
+        self.netG.train(was_training)
+        self.fake_B = y.permute(0, 2, 3, 1).float()
+        return self.fake_B
+
+    # -- persistence -------------------------------------------------------
+    def _checkpoint_state(self):
+        s = self.state
+        return {
+            "netG": s.netG.state_dict(), "netD": s.netD.state_dict(),
+            "opt_G": s.opt_G.state_dict(), "opt_D": s.opt_D.state_dict(),
+            "pool_images": s.pool.images, "pool_count": s.pool.count,
+            "pool_generator": s.pool.generator.get_state(), "step": s.step,
+            "lr_last_epoch": self._last_epoch,
+            "plateau": [self._plateau_best, self._plateau_bad, self._plateau_scale],
+        }
+
+    def _load_checkpoint_state(self, st):
+        s = self.state
+        s.netG.load_state_dict(st["netG"])
+        s.netD.load_state_dict(st["netD"])
+        s.opt_G.load_state_dict(st["opt_G"])
+        s.opt_D.load_state_dict(st["opt_D"])
+        s.pool.images.copy_(st["pool_images"])
+        s.pool.count = int(st["pool_count"])
+        s.pool.generator.set_state(st["pool_generator"])
+        s.step = int(st["step"])
+        self._last_epoch = int(st["lr_last_epoch"])
+        self._plateau_best, self._plateau_bad, self._plateau_scale = st["plateau"]
+        self._set_lr_from_schedule()
+
+    def load_networks(self, which_epoch):
+        if self.isTrain:
+            return BaseModel.load_networks(self, which_epoch)
+        # inference only: the generator out of a train checkpoint
+        which_epoch = self._resolve_epoch(which_epoch)
+        self.netG.load_state_dict(ckpt.restore_state(self.save_dir, which_epoch)["netG"])
+        print(f"loaded generator from epoch {which_epoch} checkpoint")
+
+    def load_generator_npz(self, path):
+        """Generator weights from a JAX-layout params .npz (the JAX package's
+        trained generators, or a reference .pth through its converter)."""
+        self.netG.load_state_dict(state_dict_from_jax(load_params_npz(path)))

@@ -1,11 +1,14 @@
-"""Factories and seeded parameters (port of the MixConvNeXtML, PatchGAN and
-VGG16 parts of ``dsgan_tpu/models/registry.py`` and ``models/vgg.py``).
+"""Factories, seeded parameters and the model registry (port of the
+MixConvNeXtML, PatchGAN and VGG16 parts of ``dsgan_tpu/models/
+registry.py`` and ``models/vgg.py``, and of its ``create_model``).
 
 Every factory builds its module on ``device`` (None: the CUDA card) from a
 JAX-layout parameter tree, either given (``params``) or drawn with numpy
 from ``seed``: N(0, 0.02) kernels, zero biases, PReLU slopes 0.25, as the
 JAX package's ``init_params`` with ``init_type="normal"``.
 """
+
+import importlib
 
 import torch
 
@@ -83,10 +86,11 @@ def define_G(input_nc, output_nc, ngf, which_model_netG, dtype=torch.bfloat16,
 
 
 def define_D(input_nc, ndf, which_model_netD, n_layers_D=3, dtype=torch.bfloat16, device=None,
-             params=None, seed=0):
+             params=None, seed=0, use_sigmoid=False):
     """Discriminator factory, the ``basic`` / ``n_layers`` subset of the
     reference's (networks.py:115-131): the instance-norm PatchGAN with raw
-    logits. f32 parameters, computing in ``dtype``."""
+    logits (``use_sigmoid``: their sigmoid). f32 parameters, computing in
+    ``dtype``."""
     if which_model_netD == "basic":
         n_layers_D = 3
     elif which_model_netD != "n_layers":
@@ -95,8 +99,8 @@ def define_D(input_nc, ndf, which_model_netD, n_layers_D=3, dtype=torch.bfloat16
     dev = resolve_device(device)
     if params is None:
         params = init_d_params(input_nc, ndf, n_layers_D, seed)
-    net = _build(lambda: NLayerDiscriminator(input_nc, ndf, n_layers_D), params,
-                 nlayer_entries(n_layers_D), dev)
+    net = _build(lambda: NLayerDiscriminator(input_nc, ndf, n_layers_D, use_sigmoid=use_sigmoid),
+                 params, nlayer_entries(n_layers_D), dev)
     net.compute_dtype = dtype
     return net.train()
 
@@ -111,3 +115,32 @@ def define_vgg(num_taps=4, dtype=torch.bfloat16, device=None, params=None, seed=
     net = _build(lambda: Vgg16Features(num_taps), params, vgg_entries(num_convs(num_taps)), dev)
     net.compute_dtype = dtype
     return net.eval().requires_grad_(False)
+
+
+def find_model_using_name(model_name):
+    """``dsgan_tpu_torch.models.<name>``'s ``<Name>Model`` class (reference
+    models/__init__.py:4-25)."""
+    modname = "dsgan_tpu_torch.models." + model_name
+    try:
+        modellib = importlib.import_module(modname)
+    except ModuleNotFoundError as e:
+        raise NotImplementedError(f"model [{model_name}] is not ported: the port has "
+                                  "pix2pix and test") from e
+    target = model_name.replace("_", "") + "model"
+    for name in dir(modellib):
+        cls = getattr(modellib, name)
+        if name.lower() == target and isinstance(cls, type):
+            return cls
+    raise NotImplementedError(f"In {modname}.py, there should be a class named {target} "
+                              "(case-insensitive).")
+
+
+def get_option_setter(model_name):
+    return find_model_using_name(model_name).modify_commandline_options
+
+
+def create_model(opt):
+    instance = find_model_using_name(opt.model)()
+    instance.initialize(opt)
+    print(f"model [{instance.name()}] was created")
+    return instance

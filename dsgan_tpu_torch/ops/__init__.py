@@ -9,13 +9,20 @@ from dsgan_tpu_torch.ops.conv import (
     max_pool2d,
 )
 from dsgan_tpu_torch.ops.losses import gan_loss, l1_loss, perceptual_loss, ssim_loss, tv_loss
-from dsgan_tpu_torch.ops.metrics import normalize_u8, psnr_uint8, quantize_uint8, ssim_uint8
+from dsgan_tpu_torch.ops.metrics import (
+    normalize_u8,
+    psnr_ref,
+    psnr_uint8,
+    quantize_uint8,
+    ssim_ref,
+    ssim_uint8,
+)
 from dsgan_tpu_torch.ops.norm import instance_norm, instance_stats
-from dsgan_tpu_torch.ops.ssim import ssim
+from dsgan_tpu_torch.ops.ssim import ms_ssim, ssim
 
 __all__ = [
     "adaptive_avg_pool", "adaptive_max_pool", "conv2d", "conv_transpose2d", "gan_loss",
-    "instance_norm", "instance_stats", "l1_loss", "max_pool2d", "normalize_u8",
-    "perceptual_loss", "psnr_uint8", "quantize_uint8", "ssim", "ssim_loss", "ssim_uint8",
-    "tv_loss",
+    "instance_norm", "instance_stats", "l1_loss", "max_pool2d", "ms_ssim", "normalize_u8",
+    "perceptual_loss", "psnr_ref", "psnr_uint8", "quantize_uint8", "ssim", "ssim_loss",
+    "ssim_ref", "ssim_uint8", "tv_loss",
 ]

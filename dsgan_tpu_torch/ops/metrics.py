@@ -6,7 +6,9 @@ outputs from [-1, 1] to [0, 255], clip, truncate to uint8, then PSNR and
 skimage's ``structural_similarity`` (7x7 uniform window, sample
 covariance). ``psnr_uint8`` / ``ssim_uint8`` compute them in f32 on the
 device, so a train step needs no host sync for them. The uniform-filter
-SSIM with its edges cropped equals a VALID-window mean.
+SSIM with its edges cropped equals a VALID-window mean. ``psnr_ref`` /
+``ssim_ref`` are the same protocol on host numpy arrays in float64, as
+skimage computes it: the eval harness's per-image numbers.
 """
 
 import numpy as np
@@ -55,3 +57,45 @@ def ssim_uint8(label, result, data_range=255.0, win_size=7, k1=0.01, k2=0.03):
     vxy = cov_norm * (mean(x * y) - ux * uy)
     s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux * ux + uy * uy + c1) * (vx + vy + c2))
     return s.mean()
+
+
+def psnr_ref(img1, img2):
+    """Reference cal_psnr (DSGAN/train.py:33-41) on host numpy arrays."""
+    img1 = np.asarray(img1)
+    img2 = np.asarray(img2)
+    mse_norm = np.mean((img1 / 255.0 - img2 / 255.0) ** 2)
+    if mse_norm < 1.0e-10:
+        return 100.0
+    data_range = 255 if img1.dtype == np.uint8 else 1.0
+    mse = np.mean((img1.astype(np.float64) - img2.astype(np.float64)) ** 2)
+    return float(10.0 * np.log10(data_range ** 2 / mse))
+
+
+def _uniform_valid_np(x, win):
+    """VALID uniform filter on a 2-D float64 array via cumulative sums."""
+    cs = np.pad(np.cumsum(np.cumsum(x, axis=0), axis=1), ((1, 0), (1, 0)))
+    s = cs[win:, win:] - cs[:-win, win:] - cs[win:, :-win] + cs[:-win, :-win]
+    return s / (win * win)
+
+
+def ssim_ref(img1, img2, data_range=None, win_size=7, k1=0.01, k2=0.03):
+    """Reference cal_ssim protocol (skimage ``structural_similarity``
+    defaults) on host numpy arrays; HWC multichannel or HW grayscale."""
+    img1 = np.asarray(img1)
+    img2 = np.asarray(img2)
+    if data_range is None:
+        data_range = 255 if img1.dtype == np.uint8 else 1.0
+    if img1.ndim == 3:
+        return float(np.mean([ssim_ref(img1[..., c], img2[..., c], data_range, win_size, k1, k2)
+                              for c in range(img1.shape[-1])]))
+    x = img1.astype(np.float64)
+    y = img2.astype(np.float64)
+    n = win_size * win_size
+    cov_norm = n / (n - 1.0)
+    c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
+    ux, uy = _uniform_valid_np(x, win_size), _uniform_valid_np(y, win_size)
+    vx = cov_norm * (_uniform_valid_np(x * x, win_size) - ux * ux)
+    vy = cov_norm * (_uniform_valid_np(y * y, win_size) - uy * uy)
+    vxy = cov_norm * (_uniform_valid_np(x * y, win_size) - ux * uy)
+    s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux * ux + uy * uy + c1) * (vx + vy + c2))
+    return float(np.mean(s))

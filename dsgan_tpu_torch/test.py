@@ -1,0 +1,98 @@
+"""The eval CLI (port of ``dsgan_tpu/test.py``): the generator alone over
+the test set, per-image and mean SSIM / PSNR / MS-SSIM under the
+reference protocol, an HTML gallery and ``metrics.csv``.
+
+    python -m dsgan_tpu_torch.test --dataroot /path --which_epoch N [flags]
+
+The generator comes from the train checkpoint ``--which_epoch`` or from a
+JAX-layout params ``.npz`` (``--load_npz``). Runs on the CUDA card;
+``--platform cpu`` runs the plain PyTorch path on the CPU.
+"""
+
+import csv
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from dsgan_tpu_torch import ops
+from dsgan_tpu_torch.data import CreateDataLoader
+from dsgan_tpu_torch.models import create_model
+from dsgan_tpu_torch.options.test_options import TestOptions
+from dsgan_tpu_torch.utils import html
+from dsgan_tpu_torch.utils.visualizer import save_images
+
+
+def _nchw(img):
+    """HWC uint8 -> (1, C, H, W) float32."""
+    return torch.from_numpy(img).permute(2, 0, 1)[None].float()
+
+
+def main(argv=None, dataset_path=None, out_path=None):
+    """Evaluate as the command line says. Returns the model and the
+    per-image rows, each with its host milliseconds from set_input to the
+    saved images."""
+    opt = TestOptions().parse(dataset_path, out_path, argv)
+    opt.nThreads = 1
+    opt.serial_batches = True
+    opt.no_flip = True
+
+    data_loader = CreateDataLoader(opt, "test")
+    dataset = data_loader.load_data()
+    model = create_model(opt)
+    if opt.load_npz:
+        model.load_generator_npz(opt.load_npz)
+        print(f"loaded generator weights from {opt.load_npz}")
+    else:
+        model.setup(opt)
+
+    web_dir = os.path.join(opt.results_dir, opt.name, f"{opt.phase}_{opt.which_epoch}")
+    webpage = html.HTML(
+        web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, Epoch = {opt.which_epoch}")
+
+    rows = []
+    for i, data in enumerate(dataset):
+        if i >= opt.how_many:
+            break
+        t0 = time.perf_counter()
+        model.set_input(data)
+        model.test()
+        visuals = model.get_current_visuals()
+        row = {"path": data["A_paths"][0], "index": i}
+        if "real_B" in visuals:
+            real, fake = visuals["real_B"], visuals["fake_B"]
+            row["ssim"] = ops.ssim_ref(real, fake)
+            row["psnr"] = ops.psnr_ref(real, fake)
+            if min(real.shape[:2]) > 160:  # MS-SSIM needs > (win - 1) * 16 pixels
+                row["ms_ssim"] = float(ops.ms_ssim(_nchw(real), _nchw(fake), data_range=255))
+        save_images(webpage, visuals, data["A_paths"], aspect_ratio=opt.aspect_ratio)
+        row["ms"] = (time.perf_counter() - t0) * 1e3
+        rows.append(row)
+    webpage.save()
+
+    scored = [r for r in rows if "ssim" in r]
+    ms_vals = [r["ms_ssim"] for r in rows if "ms_ssim" in r]
+    with open(os.path.join(web_dir, "metrics.csv"), "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["index", "path", "ssim", "psnr", "ms_ssim"])
+        for r in rows:
+            writer.writerow([r["index"], r["path"], r.get("ssim", ""), r.get("psnr", ""),
+                             r.get("ms_ssim", "")])
+        if scored:
+            writer.writerow(["mean", "", np.mean([r["ssim"] for r in scored]),
+                             np.mean([r["psnr"] for r in scored]),
+                             np.mean(ms_vals) if ms_vals else ""])
+    print(f"wrote {len(rows)} results to {web_dir}")
+    if scored:
+        line = "mean SSIM: %.4f  mean PSNR: %.3f" % (np.mean([r["ssim"] for r in scored]),
+                                                     np.mean([r["psnr"] for r in scored]))
+        if ms_vals:
+            line += "  mean MS-SSIM: %.4f" % float(np.mean(ms_vals))
+        print(line)
+    return model, rows
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -141,6 +141,16 @@ def load_params_npz(path):
         return unflatten({k: data[k] for k in data.files})
 
 
+def load_torchvision_npz(path):
+    """A torchvision VGG16 ``state_dict`` saved as an npz
+    (``features.N.weight`` OIHW / ``.bias``) -> the ``Vgg16Features``
+    params tree (``conv0 ..``), as the JAX package's
+    ``models/vgg.py::load_torchvision_npz`` reads it."""
+    table = [(tk, jp, fwd) for tk, jp, fwd, _ in _leaf_map(vgg_entries())]
+    with np.load(path) as data:
+        return unflatten({jp: fwd(np.asarray(data[tk], np.float32)) for tk, jp, fwd in table})
+
+
 def jax_shapes(state_dict_shapes, entries=None):
     """{torch key: shape} -> {JAX path: shape} under the layout rules."""
     return {jp: fwd(np.broadcast_to(np.float32(0), state_dict_shapes[tk])).shape

@@ -1,0 +1,118 @@
+"""The port's options (dsgan_tpu_torch.options) against the JAX package's:
+every flag with the same name, default, type and action; the flags the port
+parses but cannot run yet refuse a value other than their default and name
+their ROADMAP.md item; and the LR policies of the port's BaseModel against
+JAX BaseModel's over 25 epochs."""
+
+import argparse
+import math
+import types
+
+import pytest
+
+from dsgan_tpu.models.base_model import BaseModel as JaxBaseModel
+from dsgan_tpu.models.pix2pix import Pix2PixModel as JaxPix2PixModel
+from dsgan_tpu.options.test_options import TestOptions as JaxTestOptions
+from dsgan_tpu.options.train_options import TrainOptions as JaxTrainOptions
+from dsgan_tpu_torch.models.base_model import BaseModel
+from dsgan_tpu_torch.models.pix2pix import Pix2PixModel
+from dsgan_tpu_torch.options.test_options import TestOptions
+from dsgan_tpu_torch.options.train_options import TrainOptions
+
+
+def _actions(options, model_cls, is_train):
+    parser = options.initialize(argparse.ArgumentParser())
+    parser = model_cls.modify_commandline_options(parser, is_train)
+    return {a.dest: a for a in parser._actions if a.dest != "help"}
+
+
+@pytest.mark.parametrize("kind", ["train", "test"])
+def test_flags_match_jax(kind):
+    port, jax_ = (TrainOptions(), JaxTrainOptions()) if kind == "train" else \
+        (TestOptions(), JaxTestOptions())
+    got = _actions(port, Pix2PixModel, kind == "train")
+    want = _actions(jax_, JaxPix2PixModel, kind == "train")
+    assert sorted(got) == sorted(want)
+    for dest, w in want.items():
+        g = got[dest]
+        assert g.option_strings == w.option_strings, dest
+        assert type(g) is type(w) and g.type is w.type and g.nargs == w.nargs, dest
+        same = g.default == w.default or (
+            isinstance(w.default, float) and math.isnan(w.default) and math.isnan(g.default))
+        assert same, (dest, g.default, w.default)
+
+
+def test_parse_writes_opt_txt_and_sets_no_process_state(tmp_path):
+    import dsgan_tpu_torch.models.layers as layers
+
+    before = dict(vars(layers))
+    opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--name", "o",
+                                     "--gelu", "exact", "--suffix", "{model}"])
+    assert opt.isTrain and opt.name == "o_pix2pix" and opt.gelu == "exact"
+    assert opt.lambda_L1 == 100.0  # the model's own flag, from the two-stage parse
+    text = (tmp_path / "o_pix2pix" / "opt.txt").read_text()
+    assert "gelu: exact" in text and "[default: auto]" in text
+    assert dict(vars(layers)) == before
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--data_axis", "2"], "item 13"),
+    (["--spatial_axis", "2"], "item 13"),
+    (["--num_hosts", "2"], "item 13"),
+    (["--steps_per_dispatch", "4"], "item 18"),
+    (["--profile_dir", "prof"], "item 18"),
+    (["--debug_nans"], "item 18"),
+    (["--remat"], "not needed"),
+    (["--norm", "batch"], "item 14"),
+    (["--which_model_netG", "resnet_9blocks"], "item 14"),
+    (["--which_model_netD", "pixel"], "item 14"),
+    (["--which_model_netD", "multi"], "item 14"),
+    (["--init_type", "xavier"], "item 14"),
+    (["--model", "cycle_gan"], "item 15"),
+    (["--dataset_mode", "unaligned"], "item 15"),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
+def test_unported_switches_raise_with_their_roadmap_item(tmp_path, argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path)] + argv)
+
+
+def test_eval_only_unported_switch_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 16"):
+        TestOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--inception_weights",
+                                  "random"])
+
+
+def test_defaults_and_one_device_values_parse(tmp_path):
+    opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--data_axis", "1",
+                                     "--which_model_netD", "n_layers", "--platform", "cpu"])
+    assert opt.data_axis == 1 and opt.platform == "cpu" and opt.native_loader == "auto"
+
+
+def _schedules(policy, metrics, **kw):
+    """The LR after each of 25 epoch ends, port and JAX, from one opt."""
+    opt = dict(isTrain=True, checkpoints_dir="unused", name="x", lr=2e-4, lr_policy=policy,
+               lr_decay_iters=4, niter=10, niter_decay=10, epoch_count=1, data_axis=1,
+               platform="cpu")
+    opt.update(kw)
+    out = []
+    for cls in (BaseModel, JaxBaseModel):
+        m = cls()
+        m.initialize(types.SimpleNamespace(**opt))
+        m._set_lr_from_schedule()
+        lrs = [m.lr]
+        for v in metrics:
+            m.update_learning_rate(v)
+            lrs.append(m.lr)
+        out.append(lrs)
+    return out
+
+
+@pytest.mark.parametrize("policy,kw", [
+    ("lambda", {}), ("lambda", dict(epoch_count=3, niter=5, niter_decay=20)),
+    ("step", {}), ("plateau", {})], ids=["lambda", "lambda_epoch_count", "step", "plateau"])
+def test_lr_schedule_matches_jax_over_25_epochs(policy, kw):
+    metrics = [1.0, 0.5, 0.51, 0.52, 0.50, 0.505, 0.51, 0.52, 0.53, 0.54, 0.2, 0.21, 0.22,
+               0.23, 0.24, 0.25, 0.26, 0.27, 0.28, 0.29, 0.3, 0.31, 0.32, 0.33, 0.34]
+    got, want = _schedules(policy, metrics, **kw)
+    assert len(got) == 26 and got == want
+    assert len(set(got)) > 1  # the schedule moved
