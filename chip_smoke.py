@@ -8,7 +8,8 @@ Phases, each of which fails the run:
 
   1. the device, and its name and power limit as nvidia-smi reports them;
   2. build every CUDA kernel from ``dsgan_tpu_torch/csrc`` with nvcc, one
-     nvcc per source, all started together;
+     nvcc per source, all started together, and beside them the native
+     batch decoder (``csrc/loader.cpp``) with g++;
   3. hold K1 at the c1-c5 shapes and K3 at the uc1-uc4 shapes of the
      256x256 generator against their plain PyTorch versions on the card:
      bf16 with tanh GELU at batch 1 and 16 (rtol = atol = 2e-2, read also
@@ -39,17 +40,32 @@ Phases, each of which fails the run:
      and over the whole generator (where bf16 rounding accumulates along
      the backward) the median and the distance to the f32 gradient, with
      faulty controls that the gate must refuse;
-  7. the train and eval CLIs, in-process through their ``main(argv)``, on
-     a synthetic aligned dataset written from a numpy seed (48 + 4 pairs
-     of 256x256 PNGs): train 2 epochs of 3 steps at the default recipe
-     (batch 16, pool 50, print_freq 1), resume it for a third epoch from
-     the epoch 2 checkpoint, evaluate epoch 3 on 4 images; counters set to
-     0 before each: 5 K1 + 4 K3 + 5 K2 + 4 K4 launches per CLI train step
-     and 5 K1 + 4 K3 per eval forward, finite losses, the checkpoints and
-     the files of the JAX CLIs, the resumed step counter and LR, a
-     ``metrics.csv`` mean row; one ``cli_train`` and one ``cli_eval``
-     line of host times;
-  8. one JSON line of kernel numbers, then the result line.
+  7. the CUDA graph (``--steps_per_dispatch``'s form on the card): the
+     phase 6 recipe with its pool filled by 4 eager steps, its state copied
+     through ``state_dict``; 4 eager steps on one copy, the captured step
+     replayed 4 times on the other, and every parameter, Adam moment and
+     step, pool image, generator state, step counter and metric must be
+     equal bit for bit (else within the JAX suite's cross-program bounds,
+     tests/test_chained_step.py:16-24, with the differing tensors named);
+     the capture counts 5 K1 + 4 K3 + 5 K2 + 4 K4 launches, and a
+     profiled replay runs the same block-core kernels, as many times, as a
+     profiled eager step; then eager and replayed steps in turns, each
+     with its step ms and one profiled step (wall, device ms, idle share);
+  8. the train and eval CLIs, in-process through their ``main(argv)``, on
+     a synthetic aligned dataset written from a numpy seed (144 + 4 pairs
+     of 256x256 PNGs, 9 steps an epoch at batch 16): train 2 epochs with
+     the native decoder and ``--steps_per_dispatch 4`` (the pool's 4 eager
+     steps, the capture, replays, an eager tail each epoch), resume it for
+     a third epoch from the epoch 2 checkpoint, and as the A/B one epoch
+     on the Python loader with k = 1; evaluate epoch 3 on 4 images on the
+     serving build; counters set to 0 before each: 5 K1 + 4 K3 + 5 K2 +
+     4 K4 launches per eager or captured step and 5 K1 + 4 K3 per eval
+     forward, the native decoder's calls, the graph's eager / captured /
+     replayed counts, finite losses, the checkpoints and the files of the
+     JAX CLIs, the resumed step counter and LR, a ``metrics.csv`` mean
+     row; ``cli_train`` lines of host times per run and one ``cli_eval``;
+  9. a step that cannot be captured must raise, not run eagerly;
+ 10. one JSON line of kernel numbers, then the result line.
 
 ``--out DIR`` also writes the per-shape numbers to DIR/chip_smoke.json.
 """
@@ -61,6 +77,7 @@ import math
 import os
 import sys
 import tempfile
+import threading
 import time
 
 TOL_BF16 = dict(rtol=2e-2, atol=2e-2)
@@ -69,9 +86,10 @@ TOL_F32 = dict(rtol=2e-4, atol=2e-4)
 TOL_BWD = {"bfloat16": dict(elem=(2e-2, 2e-2), scaled=False, rel_l2=1e-2, max_abs=2e-2),
            "float32": dict(elem=(1e-3, 1e-3), scaled=True, rel_l2=None, max_abs=1e-3)}
 TRAIN = dict(batch=16, size=256, warmup=2, steps=5)
-# the CLI phase: pairs written per phase, the first steps of each train run
-# left out of its times
-CLI = dict(train_pairs=48, test_pairs=4, batch=16, size=256, warmup=2)
+# the graph phase: steps that fill the pool of 50, steps compared
+GRAPH = dict(batch=16, size=256, fill=4, steps=4, timed=5)
+# the CLI phase: pairs written per phase (9 steps an epoch), steps a chunk
+CLI = dict(train_pairs=144, test_pairs=4, batch=16, size=256, k=4)
 # the train step's G gradient, kernel path vs plain path: rel-L2 of each K2/K4
 # output at block level; median over the block weights of the whole
 # generator; kernel path's median distance to the f32 gradient over the plain
@@ -328,16 +346,19 @@ def profile_run(torch, fn, label, **info):
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    by_class = {}
-    for name, ms, _ in kernels:
+    by_class, block_core = {}, {}
+    for name, ms, count in kernels:
         low = name.lower()
         cls = next((c for c, keys in _CLASSES if any(k in low for k in keys)), "elementwise")
         by_class[cls] = by_class.get(cls, 0.0) + ms
+        if cls.startswith("block_core"):
+            block_core[name[:120]] = count
     device_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
     out = dict(info, wall_ms=wall_ms, device_ms=device_ms,
                idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
-               by_class_ms=by_class, top=[[n[:90], ms, c] for n, ms, c in top])
+               by_class_ms=by_class, top=[[n[:90], ms, c] for n, ms, c in top],
+               block_core_kernels=block_core)
     print(json.dumps({f"profile_{label}": out}))
     return out
 
@@ -665,6 +686,187 @@ def train_phase(torch, np, bc, card):
     return res, launches
 
 
+def _state_tensors(torch, state):
+    """Every tensor of a train state's ``state_dict``, by path, and its
+    step counts, on the host."""
+    out = {}
+
+    def walk(obj, path):
+        if isinstance(obj, torch.Tensor):
+            out[path] = obj.detach().cpu()
+        elif isinstance(obj, dict):
+            for k, v in obj.items():
+                walk(v, f"{path}/{k}")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                walk(v, f"{path}/{i}")
+
+    walk(state.state_dict(), "")
+    return out
+
+
+def _bounded(torch, got, want, lr, k):
+    """The JAX suite's cross-program bounds (tests/test_chained_step.py:
+    16-24): parameters within k * 2 * lr, every other tensor within 1e-6
+    relative. Returns the paths that break them."""
+    bad = []
+    for path, w in want.items():
+        g = got[path]
+        if g.dtype in (torch.uint8, torch.int64, torch.int32) or not g.is_floating_point():
+            ok = torch.equal(g, w)
+        elif path.startswith(("/netG", "/netD")):
+            ok = bool(((g.double() - w.double()).abs() <= k * 2 * lr).all())
+        else:
+            ok = bool(((g.double() - w.double()).abs() <= 1e-6 * w.double().abs() + 1e-30).all())
+        if not ok:
+            bad.append(path)
+    return bad
+
+
+def _compare(torch, graph_keys, sa, sb, got, want):
+    """The tensors of two states' ``_state_tensors`` that differ, and the
+    metric rows that do, by name; each metric's largest difference."""
+    differ = sorted(p for p in sa if not torch.equal(sa[p], sb[p]))
+    differ += [f"metric {graph_keys[j]} step {i}" for i, (g, w) in enumerate(zip(got, want))
+               for j in range(len(graph_keys)) if not torch.equal(g[j], w[j])]
+    diffs = {key: max(float((g[j] - w[j]).abs()) for g, w in zip(got, want))
+             for j, key in enumerate(graph_keys)}
+    return differ, diffs
+
+
+def graph_phase(torch, np, bc, card):
+    """The captured train step against the eager one, from one state, and
+    the two in turns under the profiler.
+
+    The control comes first: two eager runs from one state, cuDNN as the
+    CLI runs it. Where they agree bit for bit, the comparison runs so too;
+    where they do not (cuDNN's nondeterministic algorithms: split
+    reductions with atomics in convolution backward), it runs with
+    ``torch.backends.cudnn.deterministic`` on. Either way the captured
+    step must equal the eager one bit for bit, or else stay within the JAX
+    suite's bounds with the differing tensors named. The timed turns run
+    cuDNN as the CLI runs it, on a graph captured under those settings."""
+    import copy
+
+    from dsgan_tpu_torch import bench
+    from dsgan_tpu_torch.models.pix2pix import chained_train_step
+
+    dev = torch.device("cuda")
+    b, size, lr, k = GRAPH["batch"], GRAPH["size"], 2e-4, GRAPH["steps"]
+    a_state, step, cfg = bench.build(dev, size, True, torch.bfloat16, seed=0)
+    rng = np.random.default_rng(7)
+    batches = [[torch.from_numpy(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)).to(dev)
+                for _ in range(2)] for _ in range(GRAPH["fill"] + k)]
+    eager = chained_train_step(step, cfg)
+    for x in batches[:GRAPH["fill"]]:
+        eager.step(a_state, x, lr)
+    if not a_state.pool.full or eager.graph is not None:
+        fail(f"graph phase: pool {a_state.pool.count} after {GRAPH['fill']} steps, or a graph "
+             "captured before it was full")
+    start = copy.deepcopy(a_state.state_dict())
+    # the same seed: the frozen VGG is built from it and is no part of the
+    # state_dict
+    b_state = bench.build(dev, size, True, torch.bfloat16, seed=0)[0]
+    compared = batches[GRAPH["fill"]:]
+
+    def run(helper, state, **kw):
+        out = [helper.step(state, x, lr, **kw)[0].clone() for x in compared]
+        torch.cuda.synchronize()
+        return out
+
+    # the control: two eager runs from one state, cuDNN as the CLI runs it
+    b_state.load_state_dict(copy.deepcopy(start))
+    want = run(eager, a_state, eager=True)
+    again = run(eager, b_state, eager=True)
+    differ, diffs = _compare(torch, eager.keys, _state_tensors(torch, a_state),
+                             _state_tensors(torch, b_state), again, want)
+    control = dict(tensors_differ=len(differ), first=differ[:6], metric_max_abs_diff=diffs)
+    deterministic = bool(differ)
+
+    # the comparison: eager on a, the graph on b
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, False
+    try:
+        a_state.load_state_dict(copy.deepcopy(start))
+        b_state.load_state_dict(copy.deepcopy(start))
+        want = run(eager, a_state, eager=True)
+        graph = chained_train_step(step, cfg, warmup=0)
+        zero_counts(bc)
+        t0 = time.perf_counter()
+        got = run(graph, b_state)
+        capture_s = time.perf_counter() - t0
+        launches = read_counts(bc)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    if graph.counts != dict(eager=0, captured=1, replayed=k):
+        fail(f"graph phase: counts {graph.counts}, want 1 capture and {k} replays")
+    if launches != {"K1": 5, "K3": 4, "K2": 5, "K4": 4}:
+        fail(f"graph phase: the capture counted {launches}: want one step's 5 K1 + 4 K3 + 5 K2 "
+             "+ 4 K4, and nothing for the replays")
+    sa, sb = _state_tensors(torch, a_state), _state_tensors(torch, b_state)
+    differ, diffs = _compare(torch, graph.keys, sa, sb, got, want)
+    res = dict(batch=b, size=size, steps=k, tensors=len(sa), cudnn_deterministic=deterministic,
+               bitwise=not differ, differ=differ[:20], metric_max_abs_diff=diffs,
+               capture_and_replays_s=capture_s, counts=graph.counts,
+               launches_at_capture=launches, eager_vs_eager_default_cudnn=control, card=card)
+    if differ:
+        metrics_ok = all(bool(((g - w).abs() <= 1e-6 * w.abs()).all()) for g, w in zip(got, want))
+        res["outside_jax_bounds"] = _bounded(torch, sb, sa, lr, k) + ([] if metrics_ok else ["metrics"])
+    print(json.dumps({"graph_vs_eager": res}))
+    if differ and res["outside_jax_bounds"]:
+        fail(f"graph replays disagree with eager steps beyond the JAX bounds: "
+             f"{res['outside_jax_bounds'][:10]} (metrics {diffs})")
+    del graph
+
+    # in turns, cuDNN as the CLI runs it: eager (state a), replay (state b,
+    # a graph captured now), replay, eager
+    timed_graph = chained_train_step(step, cfg, warmup=0)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(GRAPH["timed"]):
+            fn(batches[i % len(batches)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / GRAPH["timed"] * 1e3
+
+    runs = dict(eager=lambda x: eager.step(a_state, x, lr, eager=True),
+                replay=lambda x: timed_graph.step(b_state, x, lr))
+    runs["replay"](batches[0])  # the capture, outside the timing
+    turns = []
+    for mode in ("eager", "replay", "replay", "eager"):
+        ms = timed(runs[mode])
+        prof = profile_run(torch, lambda: runs[mode](batches[0]), f"{mode}_step", batch=b)
+        turns.append(dict(mode=mode, step_ms=ms, wall_ms=prof["wall_ms"],
+                          device_ms=prof["device_ms"], idle_share=prof["idle_share"],
+                          by_class_ms=prof["by_class_ms"],
+                          block_core_kernels=prof["block_core_kernels"]))
+    print(json.dumps({"graph_turns": turns}))
+    kernels = {t["mode"]: t["block_core_kernels"] for t in turns}
+    if not kernels["replay"] or kernels["replay"] != kernels["eager"]:
+        fail(f"a profiled replay ran block-core kernels {kernels['replay']}, an eager step "
+             f"{kernels['eager']}")
+    res["turns"] = turns
+    return res, launches
+
+
+def capture_must_fail(torch):
+    """A step that reads a device value on the host cannot be captured:
+    the chained step must raise rather than run it eagerly."""
+    from dsgan_tpu_torch.models.base_model import ChainedStep
+
+    chained = ChainedStep(lambda state, x, lr: ({"m": x.sum() * float(x.max())}, x),
+                                warmup=0)
+    try:
+        chained.step({}, [torch.ones(4, device="cuda")], 0.1)
+    except RuntimeError as e:
+        print(json.dumps({"capture_failure_raises": str(e).splitlines()[0][:160]}))
+    else:
+        fail("a step with a host read was captured or ran eagerly instead of raising")
+    if chained.counts["eager"] or chained.graph is not None:
+        fail(f"a failed capture left {chained.counts}")
+
+
 def write_dataset(np, root):
     """An aligned dataset from a numpy seed: train_all/ and test_all/ with
     a_* (A) and b_* (B) 256x256 RGB PNGs, paired by the half-split."""
@@ -681,12 +883,14 @@ def write_dataset(np, root):
 
 
 def _cli_launches(bc, steps, forwards, what):
+    """The launch counts after ``steps`` eager or captured train steps and
+    ``forwards`` eval forwards (a replay counts none)."""
     got = read_counts(bc)
     want = {"K1": 5 * (steps + forwards), "K3": 4 * (steps + forwards), "K2": 5 * steps,
             "K4": 4 * steps}
     if got != want:
-        fail(f"{what}: launch counts {got} after {steps} train steps and {forwards} forwards: "
-             f"want 5 K1 + 4 K3 + 5 K2 + 4 K4 a step, 5 K1 + 4 K3 a forward")
+        fail(f"{what}: launch counts {got} after {steps} eager or captured train steps and "
+             f"{forwards} forwards: want 5 K1 + 4 K3 + 5 K2 + 4 K4 a step, 5 K1 + 4 K3 a forward")
     return got
 
 
@@ -710,17 +914,20 @@ def _best_ms(fn, repeats=3):
 
 def host_split(torch, eval_cli, train_model, eval_model, tmp):
     """Where the CLIs' host time goes, each part alone on the main thread
-    (best of 3): one train batch's decode and augmentation (16 items of
-    the train dataset, no threads), and the parts of one eval image: the
-    forward to a synchronized result, the visuals' fetch, the float64
-    SSIM + PSNR, the CPU MS-SSIM, the three gallery PNGs."""
+    (best of 3): one train batch's decode and augmentation (16 items) by
+    the Python path (no threads) and by the native decoder (4 threads),
+    and the parts of one eval image: the serving build's forward to a
+    synchronized result, the visuals' fetch, the float64 SSIM + PSNR, the
+    MS-SSIM on the card, the three gallery PNGs."""
     from dsgan_tpu_torch import ops
     from dsgan_tpu_torch.data import CreateDataset
     from dsgan_tpu_torch.utils.util import save_image
 
     ds = CreateDataset(train_model.opt)
     batch = CLI["batch"]
-    out = dict(decode_batch_ms=_best_ms(lambda: [ds.__getitem__(i, i) for i in range(batch)]))
+    out = dict(decode_batch_ms=_best_ms(lambda: [ds.__getitem__(i, i) for i in range(batch)]),
+               native_decode_batch_ms=_best_ms(
+                   lambda: ds.native_batch(list(range(batch)), 4, serials=list(range(batch)))))
 
     def forward():
         eval_model.test()
@@ -732,83 +939,141 @@ def host_split(torch, eval_cli, train_model, eval_model, tmp):
     real, fake = vis["real_B"], vis["fake_B"]
     out["eval_ssim_psnr_ms"] = _best_ms(
         lambda: (ops.ssim_ref(real, fake), ops.psnr_ref(real, fake)))
+    dev = eval_model.device
     out["eval_ms_ssim_ms"] = _best_ms(
-        lambda: ops.ms_ssim(eval_cli._nchw(real), eval_cli._nchw(fake), data_range=255))
+        lambda: float(ops.ms_ssim(eval_cli._nchw(real, dev), eval_cli._nchw(fake, dev),
+                                  data_range=255)))
     out["eval_png_ms"] = _best_ms(
         lambda: [save_image(v, os.path.join(tmp, f"{k}.png")) for k, v in vis.items()])
     return out
 
 
+def _cli_times(rows, label, **info):
+    """Host ms a step of the train CLI's rows (epoch, lr, loader wait,
+    dispatch, print work): over all of them and without each epoch's first
+    two."""
+    def summary(rs):
+        wait, step, fetch = (sum(r[i] for r in rs) for i in (2, 3, 4))
+        total = wait + step + fetch
+        return dict(steps=len(rs), img_per_s=CLI["batch"] * len(rs) / total,
+                    step_ms=total / len(rs) * 1e3, loader_wait_ms=wait / len(rs) * 1e3,
+                    loader_wait_share=wait / total, dispatch_ms=step / len(rs) * 1e3,
+                    print_ms=fetch / len(rs) * 1e3)
+
+    per_epoch = CLI["train_pairs"] // CLI["batch"]
+    steady = [r for i, r in enumerate(rows) if i % per_epoch >= 2]
+    return dict(info, run=label, all=summary(rows), steady=summary(steady),
+                rows=[[round(v * 1e3, 3) for v in r[2:]] for r in rows])
+
+
 def cli_phase(torch, np, bc, card):
     """Drive ``python -m dsgan_tpu_torch.train`` and ``.test`` in-process at
-    full width and prove every CLI step and forward ran its kernels."""
+    full width: the native decoder and CUDA-graph replay, a resume, the
+    Python loader with eager steps as the A/B, and the eval on the serving
+    build; prove every eager or captured step and every forward ran its
+    kernels."""
+    from dsgan_tpu_torch import runtime
     from dsgan_tpu_torch import test as eval_cli
     from dsgan_tpu_torch import train as train_cli
 
+    per_epoch = CLI["train_pairs"] // CLI["batch"]
     with tempfile.TemporaryDirectory(prefix="dsgan_cli_") as tmp:
         data, ckpt = os.path.join(tmp, "data"), os.path.join(tmp, "checkpoints")
         t0 = time.perf_counter()
         write_dataset(np, data)
         write_s = time.perf_counter() - t0
-        base = ["--dataroot", data, "--checkpoints_dir", ckpt, "--name", "cli"]
+        base = ["--dataroot", data, "--checkpoints_dir", ckpt]
         train = base + ["--batchSize", str(CLI["batch"]), "--print_freq", "1", "--pool_size", "50"]
+        graph = train + ["--name", "cli", "--native_loader", "auto",
+                         "--steps_per_dispatch", str(CLI["k"])]
 
+        # 2 epochs: [4 eager (the pool fills)] [capture + 4 replays] [eager
+        # tail], then [4 replays] [4 replays] [eager tail]
         zero_counts(bc)
-        model, run1 = train_cli.main(train + ["--niter", "1", "--niter_decay", "1"])
+        runtime.load_batch_u8.calls = 0
+        model, run1 = train_cli.main(graph + ["--niter", "1", "--niter_decay", "1"])
         torch.cuda.synchronize()
-        launches = {"train": _cli_launches(bc, len(run1), 0, "train CLI")}
-        if len(run1) != 6 or model.state.step != 6:
-            fail(f"train CLI: {len(run1)} steps, step counter {model.state.step}: want 6")
+        counts = dict(model._chained.counts)
+        launches = {"graph": _cli_launches(bc, counts["eager"] + counts["captured"], 0,
+                                           "train CLI, graph")}
+        if counts != dict(eager=6, captured=1, replayed=12):
+            fail(f"train CLI, graph: counts {counts}, want 6 eager steps (4 filling the pool, 2 "
+                 "epoch tails), 1 capture and 12 replays")
+        if runtime.load_batch_u8.calls != 2 * len(run1):
+            fail(f"train CLI: the native decoder ran {runtime.load_batch_u8.calls} times for "
+                 f"{len(run1)} batches (want A and B of each): the native path did not run "
+                 f"({runtime.reason()})")
+        if len(run1) != 2 * per_epoch or int(model.state.step) != 2 * per_epoch:
+            fail(f"train CLI: {len(run1)} steps, step counter {int(model.state.step)}: want "
+                 f"{2 * per_epoch}")
 
+        # a third epoch from the epoch 2 checkpoint: [eager (warm-up), capture
+        # + 3 replays] [4 replays] [eager tail]
         zero_counts(bc)
-        model, run2 = train_cli.main(train + ["--continue_train", "--which_epoch", "2",
+        model, run2 = train_cli.main(graph + ["--continue_train", "--which_epoch", "2",
                                               "--epoch_count", "3", "--niter", "2",
                                               "--niter_decay", "1"])
         torch.cuda.synchronize()
-        launches["resume"] = _cli_launches(bc, len(run2), 0, "resumed train CLI")
+        counts2 = dict(model._chained.counts)
+        launches["resume"] = _cli_launches(bc, counts2["eager"] + counts2["captured"], 0,
+                                           "resumed train CLI")
         # the epoch 2 checkpoint holds the schedule position of epoch 2 (1),
         # which the lambda rule counts beside --epoch_count, as JAX's does
         lr_want = 2e-4 * (1.0 - max(0, 1 + 1 + 3 - 2) / float(1 + 1))
         lrs = sorted({r[1] for r in run2})
-        if len(run2) != 3 or model.state.step != 9 or lrs != [lr_want]:
-            fail(f"resumed train CLI: {len(run2)} steps, step counter {model.state.step} (want "
-                 f"3 and 9), LR {lrs} (want {lr_want})")
-        # both runs append to result.csv: 9 lines of 4 losses, SSIM and PSNR
+        if (len(run2) != per_epoch or int(model.state.step) != 3 * per_epoch or lrs != [lr_want]
+                or counts2 != dict(eager=2, captured=1, replayed=per_epoch - 2)):
+            fail(f"resumed train CLI: {len(run2)} steps, step counter {int(model.state.step)} "
+                 f"(want {per_epoch} and {3 * per_epoch}), LR {lrs} (want {lr_want}), counts "
+                 f"{counts2}")
         losses = _finite_log(os.path.join(ckpt, "cli", "result.csv"))
-        if len(losses) != 9 * 6 or not all(math.isfinite(v) for v in losses):
+        if len(losses) != 3 * per_epoch * 6 or not all(math.isfinite(v) for v in losses):
             fail(f"CLI losses not all finite: {losses}")
         out = os.path.join(ckpt, "cli")
         missing = [f for f in ("epoch_1", "epoch_2", "epoch_3", "result.csv", "each_epoch.csv",
-                               "opt.txt", "loss_log.txt", "train_img/train_Re3_3.png")
+                               "opt.txt", "loss_log.txt", f"train_img/train_Re3_{per_epoch}.png")
                    if not os.path.exists(os.path.join(out, f))]
         if missing:
             fail(f"train CLI did not write {missing}")
 
+        # the A/B: the Python loader, every step eager on the default stream
+        zero_counts(bc)
+        runtime.load_batch_u8.calls = 0
+        model_py, run3 = train_cli.main(train + ["--name", "cli_py", "--native_loader", "off",
+                                                 "--niter", "1", "--niter_decay", "0"])
+        torch.cuda.synchronize()
+        launches["python_k1"] = _cli_launches(bc, len(run3), 0, "train CLI, Python loader")
+        if runtime.load_batch_u8.calls or len(run3) != per_epoch:
+            fail(f"train CLI, Python loader: {runtime.load_batch_u8.calls} native calls, "
+                 f"{len(run3)} steps")
+
         zero_counts(bc)
         results = os.path.join(tmp, "results")
-        ev_model, rows = eval_cli.main(base + ["--which_epoch", "3", "--how_many",
-                                               str(CLI["test_pairs"]), "--results_dir", results])
+        ev_model, rows = eval_cli.main(base + ["--name", "cli", "--which_epoch", "3",
+                                               "--how_many", str(CLI["test_pairs"]),
+                                               "--results_dir", results])
         torch.cuda.synchronize()
         launches["eval"] = _cli_launches(bc, 0, len(rows), "eval CLI")
+        dtypes = {str(p.dtype) for p in ev_model.netG.parameters()}
         with open(os.path.join(results, "cli", "test_all", "_3", "metrics.csv")) as f:
             mean = list(csv.reader(f))[-1]
         if len(rows) != CLI["test_pairs"] or mean[0] != "mean" or not all(
-                math.isfinite(float(v)) for v in mean[2:]):
-            fail(f"eval CLI: {len(rows)} rows, mean row {mean}")
+                math.isfinite(float(v)) for v in mean[2:]) or dtypes != {"torch.bfloat16"}:
+            fail(f"eval CLI: {len(rows)} rows, mean row {mean}, G parameters {dtypes} (want the "
+                 "serving build's bf16)")
         split = host_split(torch, eval_cli, model, ev_model, tmp)
 
-    timed = [r for run in (run1, run2) for r in run[CLI["warmup"]:]]
-    wait, step, fetch = (sum(r[i] for r in timed) for i in (2, 3, 4))
-    total = wait + step + fetch
-    res = dict(batch=CLI["batch"], size=CLI["size"], steps_timed=len(timed),
-               img_per_s=CLI["batch"] * len(timed) / total, step_ms=total / len(timed) * 1e3,
-               loader_wait_ms=wait / len(timed) * 1e3, loader_wait_share=wait / total,
-               dispatch_ms=step / len(timed) * 1e3, print_ms=fetch / len(timed) * 1e3,
-               steps=[[round(v * 1e3, 3) for v in r[2:]] for run in (run1, run2) for r in run],
+    runs = [_cli_times(run1[per_epoch:], "native + graph k=4, epoch 2", counts=counts),
+            _cli_times(run2, "native + graph k=4, resumed epoch 3", counts=counts2),
+            _cli_times(run3, "python + eager k=1, epoch 1")]
+    for r in runs:
+        print(json.dumps({"cli_train": dict(r, launches=launches, dataset_write_s=write_s,
+                                            card=card)}))
+    res = dict(runs=runs, first_epoch_graph=_cli_times(run1[:per_epoch], "native + graph k=4, "
+                                                       "epoch 1 (pool, capture)"),
                launches=launches, resumed_lr=lr_want, dataset_write_s=write_s, card=card)
-    print(json.dumps({"cli_train": res}))
     ev = dict(images=len(rows), ms_per_image=sum(r["ms"] for r in rows[1:]) / (len(rows) - 1),
-              first_image_ms=rows[0]["ms"], ms=[r["ms"] for r in rows],
+              first_image_ms=rows[0]["ms"], ms=[r["ms"] for r in rows], g_dtypes=sorted(dtypes),
               mean_ssim=float(mean[2]), mean_psnr=float(mean[3]), mean_ms_ssim=float(mean[4]),
               host_split_ms=split, card=card)
     print(json.dumps({"cli_eval": ev}))
@@ -845,10 +1110,19 @@ def main(argv=None):
           f"CUDA {torch.version.cuda}")
     print(card)
 
+    # the native decoder builds with g++ beside the kernels' nvcc jobs
+    from dsgan_tpu_torch import runtime
+
     t0 = time.perf_counter()
+    decoder = threading.Thread(target=runtime.available)
+    decoder.start()
     libs = _build.build()
+    decoder.join()
+    if not runtime.available():
+        fail(f"the native decoder did not build: {runtime.reason()}")
     print(json.dumps({"build_s": time.perf_counter() - t0,
-                      "libraries": [p.name for p in libs]}))
+                      "libraries": [p.name for p in libs],
+                      "native_decoder": [runtime.build().name, sorted(runtime.formats())]}))
 
     rows = check_kernels(torch, bc, instance_stats, 1, torch.bfloat16, "tanh", TOL_BF16, 20)
     rows += check_kernels(torch, bc, instance_stats, 16, torch.bfloat16, "tanh", TOL_BF16, 10)
@@ -863,7 +1137,9 @@ def main(argv=None):
     serving, serve_launches, agree = serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G,
                                                  card)
     training, train_launches = train_phase(torch, np, bc, card)
+    graphed, graph_launches = graph_phase(torch, np, bc, card)
     cli, cli_launches = cli_phase(torch, np, bc, card)
+    capture_must_fail(torch)
 
     kernels = []
     for name, src_fn, line, src, table in (
@@ -877,7 +1153,8 @@ def main(argv=None):
         kernels.append(dict(
             name=f"{name} {src_fn}", route="cuda", source=f"dsgan_tpu_torch/csrc/{src}",
             replaces=f"dsgan_tpu/pallas/block_core.py:{line}",
-            launches=serve_launches[name] + train_launches[name] + cli_launches[name],
+            launches=(serve_launches[name] + train_launches[name] + graph_launches[name]
+                      + cli_launches[name]),
             max_abs_err=max(r["max_abs_err"] for r in bf16),
             ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
             bound_ms=sum(r["bound_ms"] for r in main),
@@ -887,7 +1164,7 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
-                           generator_agreement=agree, training=training, cli=cli,
+                           generator_agreement=agree, training=training, graph=graphed, cli=cli,
                            kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -13,6 +13,7 @@ import os
 import numpy as np
 from PIL import Image
 
+from dsgan_tpu_torch import runtime
 from dsgan_tpu_torch.data import transforms as T
 from dsgan_tpu_torch.data.image_folder import list_images, make_dataset
 
@@ -87,6 +88,45 @@ class AlignedDataset:
 
     def name(self):
         return "AlignedDataset"
+
+    def native_batch(self, indices, num_threads=4, serials=None):
+        """The batch of ``indices`` through the native decoder
+        (``runtime.load_batch_u8``: decode, crop and flip on C++ threads),
+        each A/B pair with one crop offset and one flip. With ``serials``
+        the draws are ``__getitem__``'s, in its order (w offset, h offset,
+        flip) from the same per-item generator, so the batch equals the
+        Python path's bit for bit. Returns None where the Python path must
+        run: a one-channel side (the luma mix), no native decoder, or an
+        image it could not read (the Python path then raises for a broken
+        file, or reads a variant the decoder refuses)."""
+        opt = self.opt
+        input_nc, output_nc = _sides(opt)
+        if input_nc != 3 or output_nc != 3 or not runtime.available():
+            return None
+        n = len(indices)
+        h_max = max(0, opt.loadSize_h - opt.fineSize_h - 1)
+        w_max = max(0, opt.loadSize_w - opt.fineSize_w - 1)
+        oy, ox, flips = np.zeros(n, np.int64), np.zeros(n, np.int64), np.zeros(n, np.int32)
+        if serials is not None:
+            for j, s in enumerate(serials):
+                r = _item_rng(self._seed, s)
+                ox[j] = r.integers(0, w_max + 1)
+                oy[j] = r.integers(0, h_max + 1)
+                if not opt.no_flip:
+                    flips[j] = int(r.random() < 0.5)
+        else:
+            oy = self.rng.integers(0, h_max + 1, n)
+            ox = self.rng.integers(0, w_max + 1, n)
+            if not opt.no_flip:
+                flips = (self.rng.random(n) < 0.5).astype(np.int32)
+        a_paths = [self.A_paths[i] for i in indices]
+        b_paths = [self.B_paths[i] for i in indices]
+        size = (opt.fineSize_h, opt.fineSize_w)
+        a, ok_a = runtime.load_batch_u8(a_paths, oy, ox, flips, *size, num_threads)
+        b, ok_b = runtime.load_batch_u8(b_paths, oy, ox, flips, *size, num_threads)
+        if ok_a + ok_b != 2 * n:
+            return None
+        return {"A": a, "B": b, "A_paths": a_paths, "B_paths": b_paths}
 
 
 class SingleDataset:

@@ -2,17 +2,25 @@
 ``dsgan_tpu/data/loader.py``, the reference's CustomDatasetDataLoader,
 DSGAN/data/__init__.py:31-63).
 
-A producer thread walks the epoch's index order, decodes each batch's
-items on a thread pool (PIL releases the interpreter lock while it
-decodes) and stacks them into contiguous NHWC numpy arrays, a bounded
-queue ahead of the consumer, so decoding overlaps the device's step. The
-threads touch numpy and PIL only; the copy to the card is the model's,
-on the main thread (``BaseModel._place_batch``).
+A producer thread walks the epoch's index order and makes each batch, a
+bounded queue ahead of the consumer, so decoding overlaps the device's
+step. With ``--native_loader auto`` (the default) a dataset that has
+``native_batch`` decodes, crops and flips the whole batch on C++ threads
+(``dsgan_tpu_torch/runtime.py``), outside the interpreter lock; where it
+returns None the loader says so in one line and falls back for good to
+the Python path, which decodes each item on a thread pool and stacks
+them. ``native`` records which path is running. Both paths give the same
+batches bit for bit for the same ``--seed``. The threads touch numpy, PIL
+and the native decoder only; the copy to the card is the model's, on the
+main thread (``BaseModel._place_batch``).
 
-The JAX package's native C++ decode path is not ported: ``--native_loader``
-parses, and the Python path runs whatever it says.
+``epoch_start`` is where the current epoch began (the shuffle generator's
+state and the next item serial); ``resume_at`` makes the next epoch start
+there again and skip the batches already trained on, so a run stopped
+mid-epoch resumes on the same batches.
 """
 
+import copy
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -57,9 +65,11 @@ class CustomDatasetDataLoader:
         # per-item serials make the augmentations a function of the stream
         # position; the counter runs on across epochs, so each epoch draws anew
         self._serial = 0
-        if opt.native_loader != "off":
-            print(f"--native_loader {opt.native_loader}: the native decoder is not ported; "
-                  "the Python loader runs")
+        # which path makes the batches: the native decoder until it returns
+        # None, then the Python path for good
+        self.native = opt.native_loader != "off" and hasattr(self.dataset, "native_batch")
+        self.epoch_start = None
+        self._resume = None
 
     def load_data(self):
         return self
@@ -79,14 +89,33 @@ class CustomDatasetDataLoader:
         if not self.drop_last and end < n:
             yield order[end:n]
 
-    def _batch(self, pool, idx):
-        serials = range(self._serial, self._serial + len(idx))
-        self._serial += len(idx)
+    def resume_at(self, epoch_start, batches_done):
+        """Start the next epoch where ``epoch_start`` (a past
+        ``epoch_start``) says and skip its first ``batches_done`` batches."""
+        self._resume = (epoch_start, int(batches_done))
+
+    def _batch(self, pool, idx, serials):
+        if self.native:
+            batch = self.dataset.native_batch(idx.tolist(), self.num_workers, serials=serials)
+            if batch is not None:
+                return batch
+            self.native = False
+            from dsgan_tpu_torch import runtime
+
+            why = runtime.reason() or "this recipe or one of its images needs the Python path"
+            print(f"--native_loader {self.opt.native_loader}: the native decoder does not take "
+                  f"this batch ({why}); the Python loader runs from here on")
         items = list(pool.map(self.dataset.__getitem__, idx.tolist(), serials))
         return {key: np.stack([it[key] for it in items]) if isinstance(items[0][key], np.ndarray)
                 else [it[key] for it in items] for key in items[0]}
 
     def __iter__(self):
+        skip = 0
+        if self._resume is not None:
+            (rng_state, self._serial), skip = self._resume
+            self.rng.bit_generator.state = copy.deepcopy(rng_state)
+            self._resume = None
+        self.epoch_start = (copy.deepcopy(self.rng.bit_generator.state), self._serial)
         q = queue.Queue(maxsize=4)
         sentinel = object()
         stop = threading.Event()  # the consumer is gone: stop producing
@@ -103,8 +132,12 @@ class CustomDatasetDataLoader:
         def produce():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    for idx in self._batches_of_indices():
-                        if stop.is_set() or not put(self._batch(pool, idx)):
+                    for n, idx in enumerate(self._batches_of_indices()):
+                        serials = list(range(self._serial, self._serial + len(idx)))
+                        self._serial += len(idx)
+                        if n < skip:
+                            continue
+                        if stop.is_set() or not put(self._batch(pool, idx, serials)):
                             return
             except Exception as e:  # a decode error: the consumer raises it
                 put(e)

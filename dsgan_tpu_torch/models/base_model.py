@@ -1,7 +1,8 @@
 """BaseModel: the lifecycle the training algorithms share (port of
 ``dsgan_tpu/models/base_model.py``, reference DSGAN/models/
-base_model.py:18-177), without the JAX package's mesh and dispatch
-chaining.
+base_model.py:18-177), without the JAX package's mesh; and
+``ChainedStep``, the counterpart of its ``make_chained_step``, which on
+the card replays one train step captured in a CUDA graph.
 
 The shell carries the options, the device, checkpoints, the LR schedule
 and the step's metrics. The metrics stay 0-d device tensors until a
@@ -38,6 +39,119 @@ def to_host(scalars):
     return torch.stack([s.detach().float().reshape(()) for s in scalars]).cpu().tolist()
 
 
+class ChainedStep:
+    """k train steps a chunk (``--steps_per_dispatch``): the H100 form of
+    ``make_chained_step`` in ``dsgan_tpu/models/base_model.py:36-112``, for
+    any step on the contract ``step_fn(state, *batches, lr) -> (metrics,
+    out)``, ``metrics`` a dict of 0-d tensors and ``out`` one tensor. JAX
+    scans k steps in one program so that the host dispatches once; here
+    the step is captured once in a CUDA graph and replayed once a batch, so
+    the host launches one graph in place of the step's thousand kernels.
+
+    On the card the capture reads static device copies of the batches and
+    a 0-d device learning rate; for each batch ``step`` copies the batch
+    and the rate into them and replays the graph. A step runs eagerly
+    instead, on the same side stream as the capture and the replays, while
+    ``ready(state)`` is false (a host-side branch of the step still moves:
+    the replay pool filling), for the first ``warmup`` steps (the kernels'
+    builds and plans and the optimizers' lazy state are made there, not
+    inside the capture), and when the caller asks (``eager=True``). The
+    generators ``generators(state)`` are registered with the graph, so each
+    replay draws what an eager step would and advances them as far. A
+    capture that fails raises: nothing falls back to eager steps. On the
+    CPU every step is eager: no graph exists there.
+
+    The graph holds the addresses of the state's tensors. A caller that
+    replaces them (loading a checkpoint into the optimizers) calls
+    ``reset``. ``counts``: steps run eagerly, captured, replayed. A capture
+    runs nothing (the replay after it runs the step), but the kernel
+    wrappers count their launches during it, once for the captured step; a
+    replay adds to no launch count.
+    """
+
+    def __init__(self, step_fn, ready=None, generators=None, warmup=1):
+        self.step_fn = step_fn
+        self.ready = ready or (lambda state: True)
+        self.generators = generators or (lambda state: ())
+        self.warmup = warmup
+        self.keys = None  # the metric names, in the order of the vectors
+        self.stream = None
+        self.counts = dict(eager=0, captured=0, replayed=0)
+        self.reset()
+
+    def reset(self):
+        """Drop the graph; the next ready step captures anew."""
+        self.graph = None
+        self._static = None
+
+    def _vector(self, metrics):
+        if self.keys is None:
+            self.keys = list(metrics)
+        return torch.stack([metrics[k].detach().float().reshape(()) for k in self.keys])
+
+    def _eager(self, state, inputs, lr):
+        metrics, out = self.step_fn(state, *inputs, lr)
+        self.counts["eager"] += 1
+        return self._vector(metrics), out
+
+    def _capture(self, state, inputs):
+        static_in = [torch.empty_like(x) for x in inputs]
+        static_lr = torch.zeros((), dtype=torch.float32, device=inputs[0].device)
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators(state):
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, stream=self.stream):
+            metrics, out = self.step_fn(state, *static_in, static_lr)
+            vec = self._vector(metrics)
+        self.graph, self._static = graph, (static_in, static_lr, vec, out)
+        self.counts["captured"] += 1
+
+    def step(self, state, inputs, lr, eager=False):
+        """One step on the device tensors ``inputs``: (its metrics as a
+        vector in ``keys`` order, out). A replay's vector and out are the
+        graph's buffers, which the next replay overwrites."""
+        dev = inputs[0].device
+        if dev.type != "cuda":
+            return self._eager(state, inputs, lr)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        caller = torch.cuda.current_stream(dev)
+        self.stream.wait_stream(caller)
+        with torch.cuda.stream(self.stream):
+            if (self.graph is None and not eager and self.counts["eager"] >= self.warmup
+                    and self.ready(state)):
+                self._capture(state, inputs)
+            if self.graph is None or eager:
+                out = self._eager(state, inputs, lr)
+            else:
+                static_in, static_lr, vec, res = self._static
+                for s, x in zip(static_in, inputs):
+                    s.copy_(x)
+                static_lr.fill_(lr)
+                self.graph.replay()
+                self.counts["replayed"] += 1
+                out = vec, res
+        caller.wait_stream(self.stream)
+        return out
+
+    def __call__(self, state, *args, eager=False):
+        """``(state, *stacked, lr)``, each of ``stacked`` the (k, ...) stack
+        of one batch argument: the k steps in order. Returns the (k, n)
+        metrics of the steps, one row a step in ``keys`` order (JAX's
+        "seq"), and the last step's out."""
+        *stacked, lr = args
+        k = stacked[0].shape[0]
+        seq = out = None
+        for i in range(k):
+            vec, out = self.step(state, [b[i] for b in stacked], lr, eager)
+            if seq is None:
+                seq = vec.new_empty((k, vec.numel()))
+            seq[i].copy_(vec)
+        if self._static is not None and out is self._static[3]:
+            out = out.clone()  # the graph's buffer: the next replay writes it
+        return seq, out
+
+
 class BaseModel:
     @staticmethod
     def modify_commandline_options(parser, is_train=True):
@@ -53,11 +167,14 @@ class BaseModel:
         self.save_dir = os.path.join(opt.checkpoints_dir, opt.name)
         self.loss_names = []
         self.visual_names = []
+        self.image_paths = []
         self._metrics = {}
         self._host_metrics = None
         self._last_epoch = 0  # LambdaLR's last_epoch
+        self.resume_position = None  # a preempted run's position, from its checkpoint
         self.lr = getattr(opt, "lr", 0.0)
-        # the plateau policy's state (torch ReduceLROnPlateau semantics)
+        # the plateau policy's state (torch ReduceLROnPlateau semantics);
+        # not checkpointed, as in the JAX package: a resume starts it afresh
         self._plateau_best = float("inf")
         self._plateau_bad = 0
         self._plateau_scale = 1.0
@@ -70,6 +187,16 @@ class BaseModel:
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
+
+    def _place_stack(self, arrays):
+        """``np.stack(arrays)`` on the device in one copy: on the card the
+        arrays are stacked straight into pinned memory, so the host moves
+        their bytes once before the copy."""
+        first = np.asarray(arrays[0])
+        host = torch.empty((len(arrays), *first.shape), dtype=torch.from_numpy(first).dtype,
+                           pin_memory=self.device.type == "cuda")
+        np.stack(arrays, out=host.numpy())
+        return host.to(self.device, non_blocking=True)
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, opt):
@@ -88,6 +215,14 @@ class BaseModel:
 
     def forward(self):
         raise NotImplementedError
+
+    def eval(self):
+        """Put the networks in eval mode (reference base_model.py:48-52).
+        The eval build of G is already in it and no port network has
+        dropout or batch statistics, so no output moves."""
+        for net in self._networks().values():
+            net.eval()
+        self.is_eval = True
 
     def test(self):
         with torch.no_grad():
@@ -150,6 +285,12 @@ class BaseModel:
         self._host_metrics = dict(zip(keys, vals[len(pending):]))
         return vals[:len(pending)]
 
+    def use_metrics(self, metrics):
+        """Make ``metrics`` (one step's dict of 0-d tensors, e.g. a chunk's
+        ``_metrics_seq`` entry) the metrics the getters report."""
+        if metrics is not self._metrics:
+            self._metrics, self._host_metrics = metrics, None
+
     def get_current_metrics(self):
         if self._host_metrics is None:
             self.fetch_metrics()
@@ -197,6 +338,19 @@ class BaseModel:
                 out[name] = tensor2im(val)
         return out
 
+    def print_networks(self, verbose=False):
+        """Each network's parameter count (reference base_model.py:
+        150-160); ``verbose`` prints the modules too."""
+        for name, net in self._networks().items():
+            if verbose:
+                print(net)
+            n = sum(p.numel() for p in net.parameters())
+            print("[Network %s] Total number of parameters : %.3f M" % (name, n / 1e6))
+
+    def _networks(self):
+        """The model's networks by name."""
+        return {}
+
     # -- persistence -------------------------------------------------------
     def _checkpoint_state(self):
         raise NotImplementedError
@@ -204,8 +358,11 @@ class BaseModel:
     def _load_checkpoint_state(self, state):
         raise NotImplementedError
 
-    def save_networks(self, which_epoch):
-        path = ckpt.save_state(self.save_dir, which_epoch, self._checkpoint_state())
+    def save_networks(self, which_epoch, extra=None):
+        """Save the full state as the ``which_epoch`` checkpoint; ``extra``:
+        more entries for it (the train CLI's run position at a preemption)."""
+        path = ckpt.save_state(self.save_dir, which_epoch,
+                               dict(self._checkpoint_state(), **(extra or {})))
         print(f"saved checkpoint: {path}")
         k = int(getattr(self.opt, "keep_ckpts", 0) or 0)
         if k > 0:

@@ -22,17 +22,21 @@ vanilla GAN loss):
 
 Adam is ``optax.scale_by_adam(b1, 0.999, eps 1e-8)`` with the learning
 rate applied after, which ``torch.optim.Adam(betas=(b1, 0.999), eps=1e-8)``
-computes. Every metric stays a device tensor: a step never syncs.
+computes; on the card it is capturable, with its rate a 0-d device
+tensor, so that the step can be captured in a CUDA graph (``Pix2PixModel.
+optimize_parameters_chunk``). Every metric, and the step counter, stays a
+device tensor: a step never syncs.
 """
 
 import dataclasses
 import warnings
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from dsgan_tpu_torch import ops
-from dsgan_tpu_torch.models.base_model import BaseModel
+from dsgan_tpu_torch.models.base_model import BaseModel, ChainedStep
 from dsgan_tpu_torch.models.registry import define_D, define_G, define_vgg
 from dsgan_tpu_torch.utils import checkpoint as ckpt
 from dsgan_tpu_torch.utils.convert import (
@@ -63,35 +67,94 @@ class Pix2PixConfig:
 
 @dataclasses.dataclass
 class Pix2PixState:
-    """The networks, their optimizers and the replay pool; a step updates
-    them in place."""
+    """The networks, their optimizers, the replay pool and the step counter
+    (a 0-d int64 tensor on the networks' device, so that a replayed step
+    advances it); a step updates them in place."""
     netG: torch.nn.Module
     netD: torch.nn.Module
     vgg: Optional[torch.nn.Module]
     opt_G: torch.optim.Optimizer
     opt_D: torch.optim.Optimizer
     pool: ImagePool
-    step: int = 0
+    step: torch.Tensor
+
+    def state_dict(self):
+        """Everything a step reads and writes, for an exact resume. The
+        tensors are the state's own: copy them to keep them apart."""
+        pool = self.pool
+        return {"netG": self.netG.state_dict(), "netD": self.netD.state_dict(),
+                "opt_G": self.opt_G.state_dict(), "opt_D": self.opt_D.state_dict(),
+                "pool_images": pool.images, "pool_count": pool.count,
+                "pool_generator": pool.generator.get_state(), "step": self.step}
+
+    def load_state_dict(self, st):
+        """Load a ``state_dict`` written in either mode (card or CPU)."""
+        self.netG.load_state_dict(st["netG"])
+        self.netD.load_state_dict(st["netD"])
+        load_adam(self.opt_G, st["opt_G"])
+        load_adam(self.opt_D, st["opt_D"])
+        self.pool.images.copy_(st["pool_images"])
+        self.pool.count = int(st["pool_count"])
+        self.pool.generator.set_state(st["pool_generator"])
+        self.step.fill_(int(st["step"]))
 
 
 def make_adam(params, beta1):
-    """torch.optim.Adam with the learning rate set per step (``set_lr``)."""
-    return torch.optim.Adam(params, lr=0.0, betas=(beta1, 0.999), eps=1e-8)
+    """torch.optim.Adam with the learning rate set per step (``set_lr``).
+    On the card it is capturable and holds its rate as a 0-d f32 device
+    tensor, which ``set_lr`` fills in place: a step captured in a CUDA
+    graph reads at each replay the rate written before it, and the eager
+    steps on the card run the same arithmetic. On the CPU the rate is a
+    float, as before."""
+    params = list(params)
+    cuda = params[0].is_cuda
+    lr = torch.zeros((), dtype=torch.float32, device=params[0].device) if cuda else 0.0
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, 0.999), eps=1e-8, capturable=cuda)
 
 
 def set_lr(opt, lr):
+    """Set every group's rate to ``lr`` (a float, or a 0-d device tensor that
+    a captured step reads)."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
+
+
+def load_adam(opt, sd):
+    """``opt.load_state_dict(sd)`` whatever mode wrote ``sd``: the groups
+    keep this optimizer's ``capturable`` flag and rate holder, and the step
+    counts land where its mode keeps them (the card's capturable Adam on
+    the device, the CPU's on the CPU)."""
+    own = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+    groups = [dict(g, capturable=cap) for g, (_, cap) in zip(sd["param_groups"], own)]
+    opt.load_state_dict(dict(sd, param_groups=groups))
+    for g, (lr, _) in zip(opt.param_groups, own):
+        g["lr"] = lr
+    if not own[0][1]:
+        for st in opt.state.values():
+            st["step"] = st["step"].cpu()
 
 
 def init_state(netG, netD, vgg, cfg, size, d_input_nc=6, seed=0):
-    """Adam on G and D, and the pool of (d_input_nc, *size) images in the
-    compute dtype on G's device, its draws seeded from ``seed``."""
+    """Adam on G and D, the pool of (d_input_nc, *size) images in the
+    compute dtype on G's device, its draws seeded from ``seed``, and the
+    step counter at 0."""
     dev = next(netG.parameters()).device
     pool = ImagePool(cfg.pool_size, (d_input_nc, *size), cfg.compute_dtype or torch.float32,
                      dev, seed)
     return Pix2PixState(netG, netD, vgg, make_adam(netG.parameters(), cfg.beta1),
-                        make_adam(netD.parameters(), cfg.beta1), pool)
+                        make_adam(netD.parameters(), cfg.beta1), pool,
+                        torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def chained_train_step(step, cfg, warmup=1):
+    """``step`` k steps a chunk (``ChainedStep``): captured once the
+    replay pool is full (its host-side insert-or-replay branch then stays
+    put), with the pool's generator registered with the graph."""
+    return ChainedStep(step, ready=lambda s: not cfg.use_gan or s.pool.full,
+                       generators=lambda s: (s.pool.generator,), warmup=warmup)
 
 
 def images(x, dtype):
@@ -138,6 +201,7 @@ def generator_loss(cfg, state, real_A, real_B, fake, feats_real):
 def make_train_step(cfg: Pix2PixConfig):
     """The step: (state, real_A, real_B, lr) -> (metrics, fake_B). Inputs
     are (B, H, W, 3) on the networks' device, uint8 or [-1, 1] float;
+    ``lr`` a float, or a 0-d device tensor (the captured step's);
     ``metrics`` holds 0-d f32 device tensors under the JAX step's names;
     ``fake_B`` is the generator's output, (B, H, W, 3) f32, detached."""
 
@@ -213,12 +277,15 @@ class Pix2PixModel(BaseModel):
         dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
         self.compute_dtype = dtype if dtype == torch.bfloat16 else None
         dev = self.device
+        # training: f32 parameters cast at use; eval: the serving build,
+        # whose parameters are stored in the compute dtype (a train
+        # checkpoint's f32 weights are cast once, on load, to the values a
+        # cast at use gives), as the JAX package builds its inference G
         self.netG = define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.which_model_netG,
                              dtype=dtype, device=dev, gelu_mode=opt.gelu, seed=opt.seed,
-                             train=True)
+                             train=self.isTrain)
         self.state = None
         if not self.isTrain:
-            self.netG.eval()
             return
         d_input_nc = opt.input_nc + opt.output_nc if opt.use_condition == 1 else opt.output_nc
         # GANLoss(use_lsgan=opt.no_lsgan), as the reference wires it: by
@@ -253,58 +320,138 @@ class Pix2PixModel(BaseModel):
         self.state = init_state(self.netG, self.netD, vgg, self.cfg,
                                 (opt.fineSize_h, opt.fineSize_w), d_input_nc, seed=opt.seed)
         self._step_fn = make_train_step(self.cfg)
+        self._chained = chained_train_step(self._step_fn, self.cfg)
+
+    def _networks(self):
+        nets = {"G": self.netG}
+        if self.isTrain:
+            nets["D"] = self.netD
+        return nets
 
     # -- data in -----------------------------------------------------------
+    def _sides(self):
+        return ("A", "B") if self.opt.which_direction == "AtoB" else ("B", "A")
+
     def set_input(self, input):
         """Place the loader's batch on the device; the host arrays stay for
         the visuals and the anomaly dump."""
-        a, b = ("A", "B") if self.opt.which_direction == "AtoB" else ("B", "A")
+        a, b = self._sides()
         self.real_A_host = input[a]
         self.real_A = self._place_batch(input[a])
         if b in input:
             self.real_B_host = input[b]
             self.real_B = self._place_batch(input[b])
+        self.image_paths = input.get(a + "_paths", [])
+
+    def set_input_chunk(self, inputs):
+        """Stage a chunk of loader batches (``--steps_per_dispatch``): the A
+        and B sides of every batch stacked into one pinned host buffer, one
+        copy to the device. The visuals, the anomaly dump and
+        ``image_paths`` show the chunk's last batch, as in the JAX package."""
+        a, b = self._sides()
+        staged = self._place_stack([np.stack([d[a], d[b]]) for d in inputs])
+        self.chunk = (staged[:, 0], staged[:, 1])
+        self.real_A_host, self.real_B_host = inputs[-1][a], inputs[-1][b]
+        self.real_A, self.real_B = staged[-1, 0], staged[-1, 1]
+        self.image_paths = inputs[-1].get(a + "_paths", [])
 
     # -- step --------------------------------------------------------------
     def optimize_parameters(self):
         self._metrics, self.fake_B = self._step_fn(self.state, self.real_A, self.real_B, self.lr)
         self._host_metrics = None
 
+    def optimize_parameters_chunk(self):
+        """The staged chunk's steps, in order (``chained_train_step``): on
+        the card a captured CUDA graph replayed once a batch from the step
+        whose pool is full on, eager steps before it and for a chunk shorter
+        than ``--steps_per_dispatch`` (an epoch's tail); on the CPU eager
+        steps. The same arithmetic as as many ``optimize_parameters`` calls.
+        ``_metrics_seq`` holds each step's metrics (0-d views of one (k, n)
+        device tensor), ``_metrics`` the last's; ``fake_B`` is the last
+        step's."""
+        real_A, real_B = self.chunk
+        k = real_A.shape[0]
+        seq, self.fake_B = self._chained(self.state, real_A, real_B, self.lr,
+                                         eager=k < self.opt.steps_per_dispatch)
+        keys = self._chained.keys
+        self._metrics_seq = [{key: seq[i, j] for j, key in enumerate(keys)} for i in range(k)]
+        self._metrics = self._metrics_seq[-1]
+        self._host_metrics = None
+
     def forward(self):
-        """The generator on real_A in eval mode, without a graph:
-        fake_B is (B, H, W, C) f32 on the device."""
+        """The generator on real_A in eval mode, in inference mode (no
+        autograd bookkeeping, as the serving function runs it): fake_B is
+        (B, H, W, C) f32 on the device."""
         was_training = self.netG.training
-        self.netG.eval()
-        with torch.no_grad():
+        if was_training:
+            self.netG.eval()
+        with torch.inference_mode():
             y = self.netG(images(self.real_A, self.compute_dtype))
-        self.netG.train(was_training)
-        self.fake_B = y.permute(0, 2, 3, 1).float()
+            self.fake_B = y.permute(0, 2, 3, 1).float()
+        if was_training:
+            self.netG.train()
         return self.fake_B
+
+    # -- image getters (reference pix2pix_model.py:292-310) -----------------
+    @staticmethod
+    def _to_255(x):
+        """A batch as a [0, 255] float32 numpy array: uint8 batches as they
+        are, [-1, 1] batches scaled."""
+        x = x.detach().cpu() if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
+        if x.dtype == torch.uint8:
+            return x.float().numpy()
+        return ((x.float() + 1.0) / 2.0 * 255.0).numpy()
+
+    def get_img_tir(self, input):
+        """Place the TIR ("A") batch as real_A, whatever the direction, and
+        return it in [0, 255] (reference pix2pix_model.py:292-294)."""
+        self.real_A = self._place_batch(input["A"])
+        return self._to_255(self.real_A)
+
+    def get_img_gen(self, input):
+        """Place the target batch, run G on real_A, return the fake in
+        [0, 255] (reference pix2pix_model.py:296-300)."""
+        self.real_B = self._place_batch(input[self._sides()[1]])
+        self.forward()
+        return self._to_255(self.fake_B)
+
+    def get_img_label(self, input):
+        """Place the target batch and return it in [0, 255]
+        (reference pix2pix_model.py:302-305)."""
+        self.real_B = self._place_batch(input[self._sides()[1]])
+        return self._to_255(self.real_B)
+
+    def get_img_nir(self, input):
+        """Place the source batch and return it in [0, 255]
+        (reference pix2pix_model.py:307-310)."""
+        self.real_A = self._place_batch(input[self._sides()[0]])
+        return self._to_255(self.real_A)
+
+    def cal_ssim(self, input=None):
+        """The last step's SSIM (computed on the device in the step)."""
+        return float(self._metrics["ssim"])
+
+    def cal_psnr(self, input=None):
+        """The last step's PSNR (computed on the device in the step)."""
+        return float(self._metrics["psnr"])
 
     # -- persistence -------------------------------------------------------
     def _checkpoint_state(self):
-        s = self.state
-        return {
-            "netG": s.netG.state_dict(), "netD": s.netD.state_dict(),
-            "opt_G": s.opt_G.state_dict(), "opt_D": s.opt_D.state_dict(),
-            "pool_images": s.pool.images, "pool_count": s.pool.count,
-            "pool_generator": s.pool.generator.get_state(), "step": s.step,
-            "lr_last_epoch": self._last_epoch,
-            "plateau": [self._plateau_best, self._plateau_bad, self._plateau_scale],
-        }
+        """The train state and the LR schedule's position. The plateau
+        policy's state is not saved, as the JAX package saves only ``state``
+        and ``lr_last_epoch`` (``dsgan_tpu/models/pix2pix.py:540-550``)."""
+        return dict(self.state.state_dict(), lr_last_epoch=self._last_epoch)
 
     def _load_checkpoint_state(self, st):
-        s = self.state
-        s.netG.load_state_dict(st["netG"])
-        s.netD.load_state_dict(st["netD"])
-        s.opt_G.load_state_dict(st["opt_G"])
-        s.opt_D.load_state_dict(st["opt_D"])
-        s.pool.images.copy_(st["pool_images"])
-        s.pool.count = int(st["pool_count"])
-        s.pool.generator.set_state(st["pool_generator"])
-        s.step = int(st["step"])
+        """Restore a checkpoint of either mode. The plateau policy starts
+        afresh, as a JAX resume does (``dsgan_tpu/models/base_model.py:
+        133-135``): a "plateau" entry, which earlier checkpoints of the port
+        hold, is ignored. ``resume_position``: where a preempted run stood
+        (the train CLI's "run" entry), or None."""
+        self._chained.reset()
+        self.state.load_state_dict(st)
         self._last_epoch = int(st["lr_last_epoch"])
-        self._plateau_best, self._plateau_bad, self._plateau_scale = st["plateau"]
+        self.resume_position = st.get("run")
         self._set_lr_from_schedule()
 
     def load_networks(self, which_epoch):

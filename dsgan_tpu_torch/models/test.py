@@ -28,3 +28,4 @@ class TestModel(Pix2PixModel):
     def set_input(self, input):
         self.real_A_host = input["A"]
         self.real_A = self._place_batch(input["A"])
+        self.image_paths = input.get("A_paths", [])

@@ -8,6 +8,7 @@ the filter is a grouped convolution with the same taps, which gives the
 same sums. The 5-D (video) form is not ported yet.
 """
 
+import functools
 import warnings
 
 import numpy as np
@@ -24,12 +25,20 @@ def gauss_window(size=11, sigma=1.5):
     return g / g.sum()
 
 
+@functools.cache
+def _window_on(taps, dtype, device):
+    """The window ``taps`` (a tuple) as a tensor, made once per dtype and
+    device and kept: a step captured in a CUDA graph reads it at every
+    replay, and no host-to-device copy may run inside the capture."""
+    return torch.tensor(taps, dtype=dtype, device=device)
+
+
 def separable_filter_valid(x, win):
     """The 1-D window ``win`` (numpy) along H, then W, per channel, VALID.
     A dim shorter than the window is skipped with a warning, as the
     reference's gaussian_filter does (MS_SSIM.py:44-50)."""
     size, c = len(win), x.shape[1]
-    w = torch.as_tensor(win, dtype=x.dtype, device=x.device)
+    w = _window_on(tuple(np.asarray(win, np.float32).tolist()), x.dtype, x.device)
     out = x
     for axis, shape in ((2, (c, 1, size, 1)), (3, (c, 1, 1, size))):
         if x.shape[axis] >= size:

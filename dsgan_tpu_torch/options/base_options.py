@@ -21,10 +21,6 @@ _UNSUPPORTED = (
     ("data_axis", lambda v: v > 1, "data-parallel meshes are ROADMAP.md queue A item 13"),
     ("spatial_axis", lambda v: v > 1, "spatial sharding is ROADMAP.md queue A item 13"),
     ("num_hosts", lambda v: v > 1, "multi-host runs are ROADMAP.md queue A item 13"),
-    ("steps_per_dispatch", lambda v: v > 1,
-     "k-step dispatch chaining is ROADMAP.md queue A item 18"),
-    ("profile_dir", bool, "the profiler flags are ROADMAP.md queue A item 18"),
-    ("debug_nans", bool, "--debug_nans is ROADMAP.md queue A item 18"),
     ("remat", bool, "rematerialization is not needed: the default recipe's batch 16 at "
                     "256x256 takes under 9 GiB of the H100's 80 GB"),
     ("norm", lambda v: v != "instance", "--norm other than instance is ROADMAP.md queue A "
@@ -133,7 +129,9 @@ class BaseOptions:
                                  "runs random features")
         parser.add_argument("--seed", type=int, default=20, help="global RNG seed")
         parser.add_argument("--native_loader", type=str, default="auto",
-                            help="C++ decode runtime: auto|off (not ported: the Python loader runs)")
+                            help="batch decoder: auto = the native C++ decoder (built with g++ at "
+                                 "first use; the Python loader where it cannot take the batch), "
+                                 "off = the Python loader")
         parser.add_argument("--remat", action="store_true",
                             help="rematerialize generator blocks (not ported)")
         parser.add_argument("--gelu", type=str, default="auto",

@@ -50,13 +50,17 @@ class TrainOptions(BaseOptions):
         parser.add_argument("--lr_decay_iters", type=int, default=50,
                             help="step policy: epochs per 0.1x decay")
         parser.add_argument("--steps_per_dispatch", type=int, default=1,
-                            help="train steps per device dispatch (not ported: 1)")
+                            help="train steps a chunk: k batches staged in one host-to-device "
+                                 "copy; on the card the step is captured in a CUDA graph once "
+                                 "the replay pool is full and replayed once a batch")
         parser.add_argument("--profile_dir", type=str, default="",
-                            help="profiler trace directory (not ported)")
+                            help="write a torch.profiler trace of the --profile_steps range here")
         parser.add_argument("--profile_steps", type=str, default="10:13",
-                            help="start:stop step range captured by the profiler (not ported)")
+                            help="start:stop steps of this process (0-based, inclusive, rounded "
+                                 "to chunk boundaries) that --profile_dir traces")
         parser.add_argument("--debug_nans", action="store_true",
-                            help="re-run NaN-producing programs op by op (not ported)")
+                            help="autograd anomaly detection: raise at the first backward that "
+                                 "makes a NaN, naming its forward op (steps run eagerly)")
         parser.add_argument("--detect_anomaly", type=int, default=1,
                             help="1: check fetched metrics for NaN/Inf at print frequency (no "
                                  "extra device sync); on a hit, dump the state and batch and "

@@ -4,9 +4,11 @@ reference protocol, an HTML gallery and ``metrics.csv``.
 
     python -m dsgan_tpu_torch.test --dataroot /path --which_epoch N [flags]
 
-The generator comes from the train checkpoint ``--which_epoch`` or from a
-JAX-layout params ``.npz`` (``--load_npz``). Runs on the CUDA card;
-``--platform cpu`` runs the plain PyTorch path on the CPU.
+The generator is the serving build (its parameters stored in the compute
+dtype, cast once on load) with its weights from the train checkpoint
+``--which_epoch`` or from a JAX-layout params ``.npz`` (``--load_npz``).
+MS-SSIM runs on the model's device. Runs on the CUDA card; ``--platform
+cpu`` runs the plain PyTorch path on the CPU.
 """
 
 import csv
@@ -25,9 +27,9 @@ from dsgan_tpu_torch.utils import html
 from dsgan_tpu_torch.utils.visualizer import save_images
 
 
-def _nchw(img):
-    """HWC uint8 -> (1, C, H, W) float32."""
-    return torch.from_numpy(img).permute(2, 0, 1)[None].float()
+def _nchw(img, device):
+    """HWC uint8 -> (1, C, H, W) float32 on ``device``."""
+    return torch.from_numpy(img).to(device).permute(2, 0, 1)[None].float()
 
 
 def main(argv=None, dataset_path=None, out_path=None):
@@ -66,7 +68,8 @@ def main(argv=None, dataset_path=None, out_path=None):
             row["ssim"] = ops.ssim_ref(real, fake)
             row["psnr"] = ops.psnr_ref(real, fake)
             if min(real.shape[:2]) > 160:  # MS-SSIM needs > (win - 1) * 16 pixels
-                row["ms_ssim"] = float(ops.ms_ssim(_nchw(real), _nchw(fake), data_range=255))
+                row["ms_ssim"] = float(ops.ms_ssim(_nchw(real, model.device),
+                                                   _nchw(fake, model.device), data_range=255))
         save_images(webpage, visuals, data["A_paths"], aspect_ratio=opt.aspect_ratio)
         row["ms"] = (time.perf_counter() - t0) * 1e3
         rows.append(row)

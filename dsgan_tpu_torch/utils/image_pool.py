@@ -25,6 +25,12 @@ class ImagePool:
         self.images = torch.zeros((max(pool_size, 1), *shape), dtype=dtype, device=device)
         self.generator = torch.Generator(device=self.images.device).manual_seed(seed)
 
+    @property
+    def full(self):
+        """Whether every query from now on takes the replay branch (always,
+        for a pool of size 0): the step's host-side path no longer moves."""
+        return self.count >= self.pool_size
+
     def draws(self, n):
         """``n`` swap coins in [0, 1) and ``n`` pool indices, on the device."""
         dev = self.images.device

@@ -29,6 +29,26 @@ def save_images(webpage, visuals, image_path, aspect_ratio=1.0):
     webpage.add_images(ims, txts, links)
 
 
+def save_images2(webpage, visuals, image_path, aspect_ratio=1.0):
+    """The input / output / target writer with the reference's prefixes
+    (reference visualizer.py:46-65, ``dsgan_tpu/utils/visualizer.py:86-102``):
+    ``input_{name}.png``, ``output_{name}.png``, ``target_{name}.png`` in one
+    row of the webpage."""
+    image_dir = webpage.get_image_dir()
+    short_path = os.path.basename(image_path[0] if isinstance(image_path, list) else image_path)
+    name = os.path.splitext(short_path)[0]
+    webpage.add_header(name)
+    prefix = {"real_A": "input", "fake_B": "output", "real_B": "target"}
+    ims, txts, links = [], [], []
+    for label, im in visuals.items():
+        image_name = f"{prefix.get(label, label)}_{name}.png"
+        util.save_image(im, os.path.join(image_dir, image_name))
+        ims.append(image_name)
+        txts.append(prefix.get(label, label))
+        links.append(image_name)
+    webpage.add_images(ims, txts, links)
+
+
 class Visualizer:
     def __init__(self, opt):
         self.opt = opt

@@ -109,6 +109,39 @@ def test_lr_position_restored(tmp_path):
     assert back._last_epoch == 12 and back.lr == m.lr and 0 < m.lr < 2e-4
 
 
+def test_plateau_resume_follows_jax_schedule(tmp_path):
+    """Under --lr_policy plateau, a save after a reduction and a resume: the
+    resumed LR sequence is the JAX shell's, whose checkpoint holds no
+    plateau state (dsgan_tpu/models/pix2pix.py:540-550), so that its resume
+    starts the policy afresh at opt.lr. The save carries a "plateau" entry,
+    as earlier checkpoints of the port do: it is ignored."""
+    import types
+
+    from dsgan_tpu.models.base_model import BaseModel as JaxBaseModel
+
+    m = make_model(tmp_path, "plat", "--lr_policy", "plateau")
+    for _ in range(7):  # the first epoch sets the best, six more without gain reduce
+        m.update_learning_rate(1.0)
+    assert m.lr == pytest.approx(2e-4 * 0.2)
+    m.save_networks(7, extra={"plateau": [m._plateau_best, m._plateau_bad, m._plateau_scale]})
+    back = make_model(tmp_path, "plat", "--lr_policy", "plateau", "--continue_train",
+                      "--which_epoch", "7")
+    jax = JaxBaseModel()
+    jax.initialize(types.SimpleNamespace(
+        isTrain=True, checkpoints_dir=str(tmp_path), name="plat_jax", lr=2e-4,
+        lr_policy="plateau", lr_decay_iters=50, niter=10, niter_decay=10, epoch_count=1,
+        data_axis=1, platform="cpu"))
+    jax._last_epoch = 7  # what its checkpoint restores: lr_last_epoch only
+    jax._set_lr_from_schedule()
+    got, want = [back.lr], [jax.lr]
+    for v in [0.9, 0.95, 0.9, 0.91, 0.92, 0.93, 0.94, 0.5, 0.6, 0.6, 0.6, 0.6, 0.6, 0.6]:
+        back.update_learning_rate(v)
+        jax.update_learning_rate(v)
+        got.append(back.lr)
+        want.append(jax.lr)
+    assert got == want and got[0] == 2e-4 and len(set(got)) > 1
+
+
 def test_eval_model_takes_the_generator_from_a_train_checkpoint(tmp_path):
     from dsgan_tpu_torch.options.test_options import TestOptions
 

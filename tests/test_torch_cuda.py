@@ -445,3 +445,70 @@ def _plain_bwd(*args, packed=None):
 
 def _plain_bwd2(*args, packed=None):
     return bc.block_core2_bwd_reference(*args)
+
+
+def _tiny_train(seed=0, size=64):
+    """The default recipe at 64x64 with a pool of 2 and no VGG: (state,
+    step, cfg) on the card, bf16."""
+    from dsgan_tpu_torch.models import define_D, define_G
+    from dsgan_tpu_torch.models.pix2pix import Pix2PixConfig, init_state, make_train_step
+
+    cfg = Pix2PixConfig(pool_size=2, use_vgg=False, compute_dtype=torch.bfloat16)
+    netG = define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.bfloat16, device="cuda", seed=seed,
+                    train=True)
+    netD = define_D(6, 32, "basic", dtype=torch.bfloat16, device="cuda", seed=seed + 1)
+    return init_state(netG, netD, None, cfg, (size, size), seed=seed), make_train_step(cfg), cfg
+
+
+def _all_tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    vals = obj.values() if isinstance(obj, dict) else obj if isinstance(obj, (list, tuple)) else []
+    return [t for v in vals for t in _all_tensors(v)]
+
+
+def test_graph_replays_equal_eager_steps(cuda):
+    """From one state (its copy loaded through state_dict), three replays of
+    the captured step equal three eager steps bit for bit: parameters, Adam
+    moments and steps, the pool's images and generator, the step counter,
+    every metric. The capture counts one step's launches; the replays none."""
+    import copy
+
+    from dsgan_tpu_torch.models.pix2pix import chained_train_step
+
+    rng = np.random.default_rng(0)
+    batches = [[torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)).cuda()
+                for _ in range(2)] for _ in range(4)]
+    a, step, cfg = _tiny_train()
+    eager = chained_train_step(step, cfg)
+    eager.step(a, batches[0], 2e-4)  # fills the pool of 2
+    assert a.pool.full
+    b, _, _ = _tiny_train(seed=7)
+    b.load_state_dict(copy.deepcopy(a.state_dict()))
+    graph = chained_train_step(step, cfg, warmup=0)
+    want = [eager.step(a, x, 2e-4, eager=True)[0].clone() for x in batches[1:]]
+    for f in (bc.block_core, bc.block_core2, bc.block_core_bwd, bc.block_core2_bwd):
+        f.launches = 0
+    got = [graph.step(b, x, 2e-4)[0].clone() for x in batches[1:]]
+    torch.cuda.synchronize()
+    assert graph.counts == dict(eager=0, captured=1, replayed=3)
+    assert [f.launches for f in (bc.block_core, bc.block_core2, bc.block_core_bwd,
+                                 bc.block_core2_bwd)] == [5, 4, 5, 4]
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    sa, sb = _all_tensors(a.state_dict()), _all_tensors(b.state_dict())
+    assert len(sa) == len(sb) > 100
+    assert all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(sa, sb))
+
+
+def test_failed_capture_raises(cuda):
+    """A step that reads a value on the host cannot be captured: the
+    chained step raises, it does not run eagerly instead."""
+    from dsgan_tpu_torch.models.base_model import ChainedStep
+
+    def step(state, x, lr):
+        return {"m": x.sum() * float(x.max())}, x
+
+    chained = ChainedStep(step, warmup=0)
+    with pytest.raises(RuntimeError):
+        chained.step({}, [torch.ones(4, device="cuda")], 0.1)
+    assert chained.counts["eager"] == 0 and chained.graph is None

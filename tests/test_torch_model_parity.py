@@ -140,6 +140,28 @@ def test_model_shell_current_losses_and_visuals_match_jax(two_steps):
     assert m.state.step == int(jm.state.step) == 2
 
 
+def test_shell_methods_match_jax(two_steps, dataroot):
+    """The reference's image getters and metric calls on one 32x32 batch
+    (dsgan_tpu/models/pix2pix.py:487-531): the placed batches in [0, 255]
+    equal JAX's, the generated one agrees within the forward's f32
+    tolerance (one JAX inference call); cal_ssim / cal_psnr read the last
+    step's metrics as JAX's do; image_paths follows set_input."""
+    _, jm, m = two_steps
+    assert m.cal_ssim() == pytest.approx(jm.cal_ssim(), abs=1e-3)
+    assert m.cal_psnr() == pytest.approx(jm.cal_psnr(), rel=1e-3)
+    batch = next(iter(JaxCreateDataLoader(jm.opt, "train").load_data()))
+    m.set_input(batch)
+    jm.set_input(batch)
+    assert m.image_paths == list(jm.image_paths) == list(batch["A_paths"])
+    for name in ("get_img_tir", "get_img_label", "get_img_nir"):
+        got, want = getattr(m, name)(batch), getattr(jm, name)(batch)
+        assert got.dtype == want.dtype == np.float32, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    got, want = m.get_img_gen(batch), jm.get_img_gen(batch)
+    assert got.shape == want.shape == (2, SIZE, SIZE, 3)
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=0.2)
+
+
 def test_eval_cli_matches_jax_on_one_npz(dataroot, tmp_path):
     npz = tmp_path / "g.npz"
     np.savez(npz, **flatten(init_params(9)))

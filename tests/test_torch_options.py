@@ -59,9 +59,6 @@ def test_parse_writes_opt_txt_and_sets_no_process_state(tmp_path):
     (["--data_axis", "2"], "item 13"),
     (["--spatial_axis", "2"], "item 13"),
     (["--num_hosts", "2"], "item 13"),
-    (["--steps_per_dispatch", "4"], "item 18"),
-    (["--profile_dir", "prof"], "item 18"),
-    (["--debug_nans"], "item 18"),
     (["--remat"], "not needed"),
     (["--norm", "batch"], "item 14"),
     (["--which_model_netG", "resnet_9blocks"], "item 14"),
@@ -74,6 +71,18 @@ def test_parse_writes_opt_txt_and_sets_no_process_state(tmp_path):
 def test_unported_switches_raise_with_their_roadmap_item(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path)] + argv)
+
+
+@pytest.mark.parametrize("argv,key,value", [
+    (["--steps_per_dispatch", "4"], "steps_per_dispatch", 4),
+    (["--profile_dir", "prof", "--profile_steps", "2:5"], "profile_dir", "prof"),
+    (["--debug_nans"], "debug_nans", True),
+    (["--native_loader", "off"], "native_loader", "off"),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
+def test_runtime_switches_parse(tmp_path, argv, key, value):
+    """The train CLI's runtime flags are ported: they parse to their values."""
+    opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path)] + argv)
+    assert getattr(opt, key) == value
 
 
 def test_eval_only_unported_switch_raises(tmp_path):
