@@ -90,6 +90,14 @@ TRAIN = dict(batch=16, size=256, warmup=2, steps=5)
 GRAPH = dict(batch=16, size=256, fill=4, steps=4, timed=5)
 # the CLI phase: pairs written per phase (9 steps an epoch), steps a chunk
 CLI = dict(train_pairs=144, test_pairs=4, batch=16, size=256, k=4)
+# the export phase: requests timed per turn; the share of pixels that may
+# be one level off the live serving function; the w8 gate's SSIM floor
+EXPORT = dict(size=256, requests_b1=30, requests_b16=10, pixels_off=1e-3, quant_tol=0.9)
+# the zoo phase: (generator, input size) at ngf 64 and batch 1; pairs of
+# its train-CLI epoch (the pool of 50 fills, then the graph replays)
+ZOO = dict(generators=[("resnet_9blocks", 256), ("resnet_6blocks", 256), ("unet_128", 128),
+                       ("unet_256", 256), ("gll", 256), ("cascaded", 256), ("unetpp", 256),
+                       ("wnet", 256)], train_pairs=60)
 # the train step's G gradient, kernel path vs plain path: rel-L2 of each K2/K4
 # output at block level; median over the block weights of the whole
 # generator; kernel path's median distance to the f32 gradient over the plain
@@ -441,6 +449,210 @@ def serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G, card):
     return results, launches, agree
 
 
+def _pixels_off(torch, got, want):
+    """Share of uint8 pixels that differ, and the largest difference."""
+    d = (got.int() - want.int()).abs()
+    return float((d > 0).float().mean()), int(d.max())
+
+
+def export_phase(torch, np, bc, serve_mod, define_G, card):
+    """The serving artifact (``dsgan_tpu_torch.export``) of the full-width
+    bf16 generator: exported with a symbolic batch, saved, loaded back
+    through ``load_artifact``; at batch 1 and 16 its output against
+    ``serve.serving_fn``'s (bit for bit, else at most EXPORT["pixels_off"]
+    of pixels one level off), 5 K1 + 4 K3 launches per artifact forward,
+    request latency of the two in turns; then the w8 artifact from the
+    same weights held in f32: its size beside the float one's, its
+    launches, and the quality gate (SSIM / PSNR against the float
+    artifact, and ``export._quant_gate``)."""
+    from types import SimpleNamespace
+
+    from dsgan_tpu_torch import export
+
+    dev = torch.device("cuda")
+    size = EXPORT["size"]
+    netG = define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.bfloat16, device="cuda", seed=0)
+    res = dict(size=size, card=card)
+    forwards = 0
+    zero_counts(bc)
+    with tempfile.TemporaryDirectory(prefix="dsgan_export_") as tmp:
+        t0 = time.perf_counter()
+        program, meta = export.export_generator(netG, size, size, 3)
+        res["export_s"] = time.perf_counter() - t0
+        if meta["batch"] != "polymorphic":
+            fail(f"export: the artifact's batch is {meta['batch']}, not symbolic")
+        path = export.save_artifact(os.path.join(tmp, "g.pt2"), program, meta)
+        t0 = time.perf_counter()
+        call, _ = export.load_artifact(path)
+        res["load_s"] = time.perf_counter() - t0
+        res["bytes_float"] = os.path.getsize(path)
+        fn = serve_mod.serving_fn(netG)
+        rng = np.random.default_rng(11)
+        for batch, requests in ((1, EXPORT["requests_b1"]), (16, EXPORT["requests_b16"])):
+            x = torch.from_numpy(rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8))
+            x = x.to(dev)
+            before = read_counts(bc)
+            got = call(x)
+            torch.cuda.synchronize()
+            after = read_counts(bc)
+            forwards += 1
+            per = {k: after[k] - before[k] for k in after}
+            if per != {"K1": 5, "K3": 4, "K2": 0, "K4": 0}:
+                fail(f"export: an artifact forward at batch {batch} launched {per}: want 5 K1 "
+                     "+ 4 K3")
+            want = fn(x)
+            forwards += 1
+            off, max_off = _pixels_off(torch, got, want)
+            if got.dtype != torch.uint8 or tuple(got.shape) != (batch, size, size, 3):
+                fail(f"export: artifact output {got.dtype} {tuple(got.shape)} at batch {batch}")
+            if not (off == 0.0 or (max_off <= 1 and off <= EXPORT["pixels_off"])):
+                fail(f"export: the artifact differs from serving_fn at batch {batch}: "
+                     f"{off:.2e} of pixels off, by up to {max_off}")
+            pool = [rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8) for _ in range(4)]
+            turns = []
+            for mode in ("serving_fn", "artifact", "artifact", "serving_fn"):
+                f = fn if mode == "serving_fn" else call
+                serve_mod.serve_requests(f, pool[:2], dev)
+                lat, _ = serve_mod.serve_requests(f, [pool[i % 4] for i in range(requests)], dev)
+                forwards += requests + 2
+                turns.append(dict(mode=mode, latency_ms_p50=float(np.percentile(lat, 50)),
+                                  latency_ms_p95=float(np.percentile(lat, 95)),
+                                  img_per_s=batch * requests / (lat.sum() / 1e3)))
+            # one request of each under the profiler: device time, idle share
+            prof = {}
+            for mode, f in (("serving_fn", fn), ("artifact", call)):
+                p = profile_run(torch, lambda f=f: f(x), f"export_{mode}_b{batch}", batch=batch)
+                prof[mode] = {k: p[k] for k in ("wall_ms", "device_ms", "idle_share",
+                                                "by_class_ms")}
+                forwards += 2
+            res[f"b{batch}"] = dict(bitwise=off == 0.0, pixels_off=off, max_off=max_off,
+                                    held="bit for bit" if off == 0.0 else
+                                    f"at most {EXPORT['pixels_off']} of pixels one level off",
+                                    turns=turns, profile=prof)
+            print(json.dumps({f"export_b{batch}": dict(res[f"b{batch}"], card=card)}))
+
+        # w8 from the f32 weights of the same seed, as the export CLI does
+        net32 = define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.bfloat16, device="cuda", seed=0,
+                         train=True).eval()
+        t0 = time.perf_counter()
+        q_program, q_meta = export.export_generator(net32, size, size, 3, quantize="w8")
+        res["export_w8_s"] = time.perf_counter() - t0
+        q_path = export.save_artifact(os.path.join(tmp, "g_w8.pt2"), q_program, q_meta)
+        res["bytes_w8"] = os.path.getsize(q_path)
+        q_call, _ = export.load_artifact(q_path)
+        probe = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 256, (1, size, size, 3), dtype=np.uint8)).to(dev)
+        before = read_counts(bc)
+        yq = q_call(probe)
+        torch.cuda.synchronize()
+        after = read_counts(bc)
+        yf = call(probe)
+        forwards += 2
+        per = {k: after[k] - before[k] for k in after}
+        if per != {"K1": 5, "K3": 4, "K2": 0, "K4": 0}:
+            fail(f"export: a w8 artifact forward launched {per}: want 5 K1 + 4 K3")
+        a, b = (t.permute(0, 3, 1, 2).float() for t in (yf, yq))
+        from dsgan_tpu_torch.ops import psnr_uint8, ssim_uint8
+
+        res["w8_vs_float_artifact"] = dict(ssim=float(ssim_uint8(a, b)),
+                                           psnr=float(psnr_uint8(a, b)))
+        opt = SimpleNamespace(fineSize_h=size, fineSize_w=size, input_nc=3)
+        res["quant_gate"] = export._quant_gate(net32, opt,
+                                               SimpleNamespace(quant_tol=EXPORT["quant_tol"]))
+        forwards += 2
+    launches = read_counts(bc)
+    if launches != {"K1": 5 * forwards, "K3": 4 * forwards, "K2": 0, "K4": 0}:
+        fail(f"export: launch counts {launches} after {forwards} forwards: want 5 K1 + 4 K3 each")
+    res.update(forwards=forwards, launches=launches, size_ratio=res["bytes_w8"] / res["bytes_float"])
+    print(json.dumps({"export": {k: v for k, v in res.items() if k not in ("b1", "b16")}}))
+    return res, launches
+
+
+def zoo_phase(torch, np, bc, card):
+    """The zoo on the card: each generator of ZOO["generators"] in bf16 at
+    ngf 64, batch 1, finite output of its size; the train CLI on the zoo
+    recipe (resnet_9blocks, --norm batch, multiscale D, batch 1,
+    --steps_per_dispatch 4) for one epoch of synthetic PNGs, whose losses
+    must be finite and whose graph must capture once the pool is full;
+    and that recipe's 4 replays against 4 eager steps from one state
+    (``replay_vs_eager``), BatchNorm buffers and the dropout generator
+    included. The zoo launches no block-core kernel."""
+    from PIL import Image
+
+    from dsgan_tpu_torch import train as train_cli
+    from dsgan_tpu_torch.models import define_D, define_G, define_vgg
+    from dsgan_tpu_torch.models.pix2pix import Pix2PixConfig, init_state, make_train_step
+
+    dev = torch.device("cuda")
+    res = dict(card=card, generators={})
+    zero_counts(bc)
+    for name, size in ZOO["generators"]:
+        net = define_G(3, 3, 64, name, dtype=torch.bfloat16, device="cuda", seed=1)
+        x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (1, 3, size, size))
+                             .astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            y = net(x)
+            ms = time_ms(torch, lambda: net(x), 3, repeats=3)
+        if tuple(y.shape) != (1, 3, size, size) or not bool(torch.isfinite(y).all()):
+            fail(f"zoo: {name} gave {tuple(y.shape)}, finite {bool(torch.isfinite(y).all())}")
+        res["generators"][name] = dict(size=size, forward_ms=ms, parameters=sum(
+            p.numel() for p in net.parameters()))
+        del net
+    print(json.dumps({"zoo_generators": res["generators"]}))
+
+    recipe = ["--which_model_netG", "resnet_9blocks", "--norm", "batch", "--which_model_netD",
+              "multi", "--ngf", "64", "--ndf", "64", "--batchSize", "1",
+              "--steps_per_dispatch", "4"]
+    pairs = ZOO["train_pairs"]
+    with tempfile.TemporaryDirectory(prefix="dsgan_zoo_") as tmp:
+        rng = np.random.default_rng(6)
+        d = os.path.join(tmp, "data", "train_all")
+        os.makedirs(d)
+        for side in "ab":
+            for i in range(pairs):
+                Image.fromarray(rng.integers(0, 256, (256, 256, 3), dtype=np.uint8)).save(
+                    os.path.join(d, f"{side}_{i:02d}.png"))
+        t0 = time.perf_counter()
+        model, rows = train_cli.main(recipe + [
+            "--dataroot", os.path.join(tmp, "data"), "--checkpoints_dir",
+            os.path.join(tmp, "checkpoints"), "--name", "zoo", "--niter", "1",
+            "--niter_decay", "0", "--print_freq", "10"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = dict(model._chained.counts)
+        losses = _finite_log(os.path.join(tmp, "checkpoints", "zoo", "result.csv"))
+        stats = [k for k in model.netD.state_dict() if k.endswith("running_var")]
+    if len(rows) != pairs or not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"zoo CLI: {len(rows)} steps, losses {losses[:12]}")
+    if counts["captured"] != 1 or counts["replayed"] != pairs - 50 or not stats:
+        fail(f"zoo CLI: counts {counts} (want a capture once the pool of 50 is full and "
+             f"{pairs - 50} replays), D's BatchNorm buffers {stats[:2]}")
+    res["cli"] = dict(steps=len(rows), counts=counts, seconds=cli_s,
+                      step_ms=[round(sum(r[2:]) * 1e3, 3) for r in rows][-8:])
+    print(json.dumps({"zoo_cli": res["cli"]}))
+
+    def build():
+        cfg = Pix2PixConfig(pool_size=50, use_vgg=True, compute_dtype=torch.bfloat16,
+                            fuse_d_batch=False)
+        g = define_G(3, 3, 64, "resnet_9blocks", norm="batch", use_dropout=True,
+                     dtype=torch.bfloat16, device=dev, seed=3, train=True)
+        dnet = define_D(6, 64, "multi", norm="batch", dtype=torch.bfloat16, device=dev, seed=4)
+        vgg = define_vgg(4, dtype=torch.bfloat16, device=dev, seed=5)
+        return init_state(g, dnet, vgg, cfg, (256, 256), seed=3), make_train_step(cfg), cfg
+
+    graph, _, run = replay_vs_eager(torch, np, bc, build, 1, 256, 50, 4,
+                                    {"K1": 0, "K3": 0, "K2": 0, "K4": 0}, "zoo graph")
+    compared = _state_tensors(torch, run["a_state"])
+    graph["batchnorm_buffers_compared"] = sum("running_" in p for p in compared)
+    graph["dropout_generator_compared"] = "/dropout_generator" in compared
+    res["graph"] = graph
+    print(json.dumps({"zoo_graph_vs_eager": graph}))
+    launches = read_counts(bc)
+    if any(launches.values()):
+        fail(f"zoo: the zoo launched block-core kernels {launches}")
+    return res
+
+
 def _plain_kernels(bc):
     """Patches that put the plain versions in the kernels' place (for the
     comparison only: the port has no such switch)."""
@@ -734,9 +946,11 @@ def _compare(torch, graph_keys, sa, sb, got, want):
     return differ, diffs
 
 
-def graph_phase(torch, np, bc, card):
-    """The captured train step against the eager one, from one state, and
-    the two in turns under the profiler.
+def replay_vs_eager(torch, np, bc, build, batch, size, fill, k, want, label, lr=2e-4):
+    """The captured train step against the eager one, from one state:
+    ``build()`` -> (state, step, config) of a recipe, built twice from one
+    seed (a frozen VGG is no part of the state_dict); ``fill`` eager steps
+    fill its pool, then ``k`` steps each way.
 
     The control comes first: two eager runs from one state, cuDNN as the
     CLI runs it. Where they agree bit for bit, the comparison runs so too;
@@ -744,30 +958,27 @@ def graph_phase(torch, np, bc, card):
     reductions with atomics in convolution backward), it runs with
     ``torch.backends.cudnn.deterministic`` on. Either way the captured
     step must equal the eager one bit for bit, or else stay within the JAX
-    suite's bounds with the differing tensors named. The timed turns run
-    cuDNN as the CLI runs it, on a graph captured under those settings."""
+    suite's bounds with the differing tensors named. ``want``: the launch
+    counts of the capture (one step's). Returns the result, the launches,
+    and what the timed turns need."""
     import copy
 
-    from dsgan_tpu_torch import bench
     from dsgan_tpu_torch.models.pix2pix import chained_train_step
 
     dev = torch.device("cuda")
-    b, size, lr, k = GRAPH["batch"], GRAPH["size"], 2e-4, GRAPH["steps"]
-    a_state, step, cfg = bench.build(dev, size, True, torch.bfloat16, seed=0)
+    a_state, step, cfg = build()
     rng = np.random.default_rng(7)
-    batches = [[torch.from_numpy(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)).to(dev)
-                for _ in range(2)] for _ in range(GRAPH["fill"] + k)]
+    batches = [[torch.from_numpy(rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8))
+                .to(dev) for _ in range(2)] for _ in range(fill + k)]
     eager = chained_train_step(step, cfg)
-    for x in batches[:GRAPH["fill"]]:
+    for x in batches[:fill]:
         eager.step(a_state, x, lr)
     if not a_state.pool.full or eager.graph is not None:
-        fail(f"graph phase: pool {a_state.pool.count} after {GRAPH['fill']} steps, or a graph "
-             "captured before it was full")
+        fail(f"{label}: pool {a_state.pool.count} after {fill} steps, or a graph captured "
+             "before it was full")
     start = copy.deepcopy(a_state.state_dict())
-    # the same seed: the frozen VGG is built from it and is no part of the
-    # state_dict
-    b_state = bench.build(dev, size, True, torch.bfloat16, seed=0)[0]
-    compared = batches[GRAPH["fill"]:]
+    b_state = build()[0]
+    compared = batches[fill:]
 
     def run(helper, state, **kw):
         out = [helper.step(state, x, lr, **kw)[0].clone() for x in compared]
@@ -776,10 +987,10 @@ def graph_phase(torch, np, bc, card):
 
     # the control: two eager runs from one state, cuDNN as the CLI runs it
     b_state.load_state_dict(copy.deepcopy(start))
-    want = run(eager, a_state, eager=True)
+    want_m = run(eager, a_state, eager=True)
     again = run(eager, b_state, eager=True)
     differ, diffs = _compare(torch, eager.keys, _state_tensors(torch, a_state),
-                             _state_tensors(torch, b_state), again, want)
+                             _state_tensors(torch, b_state), again, want_m)
     control = dict(tensors_differ=len(differ), first=differ[:6], metric_max_abs_diff=diffs)
     deterministic = bool(differ)
 
@@ -789,7 +1000,7 @@ def graph_phase(torch, np, bc, card):
     try:
         a_state.load_state_dict(copy.deepcopy(start))
         b_state.load_state_dict(copy.deepcopy(start))
-        want = run(eager, a_state, eager=True)
+        want_m = run(eager, a_state, eager=True)
         graph = chained_train_step(step, cfg, warmup=0)
         zero_counts(bc)
         t0 = time.perf_counter()
@@ -799,24 +1010,44 @@ def graph_phase(torch, np, bc, card):
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
     if graph.counts != dict(eager=0, captured=1, replayed=k):
-        fail(f"graph phase: counts {graph.counts}, want 1 capture and {k} replays")
-    if launches != {"K1": 5, "K3": 4, "K2": 5, "K4": 4}:
-        fail(f"graph phase: the capture counted {launches}: want one step's 5 K1 + 4 K3 + 5 K2 "
-             "+ 4 K4, and nothing for the replays")
+        fail(f"{label}: counts {graph.counts}, want 1 capture and {k} replays")
+    if launches != want:
+        fail(f"{label}: the capture counted {launches}: want one step's {want}, and nothing "
+             "for the replays")
     sa, sb = _state_tensors(torch, a_state), _state_tensors(torch, b_state)
-    differ, diffs = _compare(torch, graph.keys, sa, sb, got, want)
-    res = dict(batch=b, size=size, steps=k, tensors=len(sa), cudnn_deterministic=deterministic,
-               bitwise=not differ, differ=differ[:20], metric_max_abs_diff=diffs,
-               capture_and_replays_s=capture_s, counts=graph.counts,
-               launches_at_capture=launches, eager_vs_eager_default_cudnn=control, card=card)
+    differ, diffs = _compare(torch, graph.keys, sa, sb, got, want_m)
+    res = dict(batch=batch, size=size, steps=k, tensors=len(sa),
+               cudnn_deterministic=deterministic, bitwise=not differ, differ=differ[:20],
+               metric_max_abs_diff=diffs, capture_and_replays_s=capture_s, counts=graph.counts,
+               launches_at_capture=launches, eager_vs_eager_default_cudnn=control)
     if differ:
-        metrics_ok = all(bool(((g - w).abs() <= 1e-6 * w.abs()).all()) for g, w in zip(got, want))
+        metrics_ok = all(bool(((g - w).abs() <= 1e-6 * w.abs()).all()) for g, w in zip(got, want_m))
         res["outside_jax_bounds"] = _bounded(torch, sb, sa, lr, k) + ([] if metrics_ok else ["metrics"])
-    print(json.dumps({"graph_vs_eager": res}))
     if differ and res["outside_jax_bounds"]:
-        fail(f"graph replays disagree with eager steps beyond the JAX bounds: "
+        print(json.dumps({label: res}))
+        fail(f"{label}: graph replays disagree with eager steps beyond the JAX bounds: "
              f"{res['outside_jax_bounds'][:10]} (metrics {diffs})")
-    del graph
+    return res, launches, dict(eager=eager, a_state=a_state, b_state=b_state, step=step, cfg=cfg,
+                               batches=batches)
+
+
+def graph_phase(torch, np, bc, card):
+    """The default recipe's captured train step against the eager one
+    (``replay_vs_eager``), then the two in turns under the profiler. The
+    timed turns run cuDNN as the CLI runs it, on a graph captured under
+    those settings."""
+    from dsgan_tpu_torch import bench
+    from dsgan_tpu_torch.models.pix2pix import chained_train_step
+
+    dev = torch.device("cuda")
+    b, size, lr = GRAPH["batch"], GRAPH["size"], 2e-4
+    res, launches, run = replay_vs_eager(
+        torch, np, bc, lambda: bench.build(dev, size, True, torch.bfloat16, seed=0), b, size,
+        GRAPH["fill"], GRAPH["steps"], {"K1": 5, "K3": 4, "K2": 5, "K4": 4}, "graph phase")
+    res["card"] = card
+    print(json.dumps({"graph_vs_eager": res}))
+    eager, a_state, b_state = run["eager"], run["a_state"], run["b_state"]
+    step, cfg, batches = run["step"], run["cfg"], run["batches"]
 
     # in turns, cuDNN as the CLI runs it: eager (state a), replay (state b,
     # a graph captured now), replay, eager
@@ -1136,9 +1367,11 @@ def main(argv=None):
 
     serving, serve_launches, agree = serve_phase(torch, np, bc, mixconvnext, serve_mod, define_G,
                                                  card)
+    exported, export_launches = export_phase(torch, np, bc, serve_mod, define_G, card)
     training, train_launches = train_phase(torch, np, bc, card)
     graphed, graph_launches = graph_phase(torch, np, bc, card)
     cli, cli_launches = cli_phase(torch, np, bc, card)
+    zoo = zoo_phase(torch, np, bc, card)
     capture_must_fail(torch)
 
     kernels = []
@@ -1153,8 +1386,8 @@ def main(argv=None):
         kernels.append(dict(
             name=f"{name} {src_fn}", route="cuda", source=f"dsgan_tpu_torch/csrc/{src}",
             replaces=f"dsgan_tpu/pallas/block_core.py:{line}",
-            launches=(serve_launches[name] + train_launches[name] + graph_launches[name]
-                      + cli_launches[name]),
+            launches=(serve_launches[name] + export_launches[name] + train_launches[name]
+                      + graph_launches[name] + cli_launches[name]),
             max_abs_err=max(r["max_abs_err"] for r in bf16),
             ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
             bound_ms=sum(r["bound_ms"] for r in main),
@@ -1164,8 +1397,8 @@ def main(argv=None):
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
-                           generator_agreement=agree, training=training, graph=graphed, cli=cli,
-                           kernels=kernels,
+                           generator_agreement=agree, export=exported, training=training,
+                           graph=graphed, cli=cli, zoo=zoo, kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -13,10 +13,17 @@ InstanceNorm statistics as inputs; the backward wrappers
 gradients in f32, and the per-(image, channel) sums S1 = sum(dn),
 S2 = sum(dn * (h - mean)). Each wrapper counts its launches in
 ``.launches``. ``block_core_in`` / ``block_core2_in`` are the entries the
-model calls: autograd Functions that compute the statistics, run K1 / K3
-forward and K2 / K4 backward, and fold S1, S2 into the closed-form
-InstanceNorm cotangent (``in_fold``), as ``_in_vjp_bwd`` /
-``_in2_vjp_bwd`` do in the JAX package.
+model calls. Where autograd records, they are autograd Functions that
+compute the statistics, run K1 / K3 forward and K2 / K4 backward, and fold
+S1, S2 into the closed-form InstanceNorm cotangent (``in_fold``), as
+``_in_vjp_bwd`` / ``_in2_vjp_bwd`` do in the JAX package. Where it does
+not (``no_grad``, inference mode, a ``torch.export`` trace), they call the
+forwards registered as the custom ops ``dsgan::block_core`` (K1) and
+``dsgan::block_core2`` (K3), so that an exported graph holds the kernels:
+the CUDA implementation launches the kernel, the CPU implementation is the
+plain version, and the fake implementation gives the channels_last output
+the kernel writes. The ops take the packed weights; a caller that keeps no
+pack gets one made by plain (traceable) ops.
 
 In bf16 all four run the Hopper kernels: K1 and K3
 ``csrc/block_core2_fwd_sm90.cu`` (wgmma fed by TMA, 128-row tiles, and
@@ -52,7 +59,7 @@ output is rounded once.
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -89,6 +96,17 @@ class PackedWeights(NamedTuple):
     wst: torch.Tensor = None
 
 
+def _padded(w, shape, dtype):
+    """``w`` in ``dtype``, contiguous, zero-padded at the end of each axis
+    to ``shape``; no copy where it already is all of that (the generator's
+    widths but c1's need no padding, so its packs are mostly views)."""
+    if tuple(w.shape) == tuple(shape):
+        return (w if w.dtype == dtype else w.to(dtype)).contiguous()
+    out = w.new_zeros(shape, dtype=dtype)
+    out[tuple(slice(0, n) for n in w.shape)] = w
+    return out
+
+
 def pack_weights(w1, b1, w2, b2, ws, dtype, c1=None):
     """Pad the block weights for the kernel. ``c1`` splits the input
     channels into parts a = [0, c1) and b = [c1, C) for ``block_core2_in``."""
@@ -99,21 +117,23 @@ def pack_weights(w1, b1, w2, b2, ws, dtype, c1=None):
     h4p, pp = _ceil16(h4), _ceil16(p)
 
     def rows_split(w, ncols):
-        out = w.new_zeros((c1p + c2p, ncols), dtype=dtype)
-        out[:c1, : w.shape[1]] = w[:c1]
-        out[c1p: c1p + c - c1, : w.shape[1]] = w[c1:]
-        return out
+        if c1p == c1 and c2p == c - c1:
+            return _padded(w, (c, ncols), dtype)
+        return torch.cat([_padded(w[:c1], (c1p, ncols), dtype),
+                          _padded(w[c1:], (c2p, ncols), dtype)])
 
-    w2p = w2.new_zeros((h4p, pp), dtype=dtype)
-    w2p[:h4, :p] = w2
-    b1p = b1.new_zeros((h4p,), dtype=dtype)
-    b1p[:h4] = b1
-    b2p = b2.new_zeros((pp,), dtype=dtype)
-    b2p[:p] = b2
     w1p, wsp = rows_split(w1, h4p), rows_split(ws, pp)
+    w2p = _padded(w2, (h4p, pp), dtype)
+    b1p, b2p = _padded(b1, (h4p,), dtype), _padded(b2, (pp,), dtype)
     tr = {}
     if dtype == torch.bfloat16:
-        tr = dict(w1t=w1p.t().contiguous(), w2t=w2p.t().contiguous(), wst=wsp.t().contiguous())
+        def transposed(w, wp):
+            """wp's transpose, from w's own where no padding came between."""
+            if wp.shape == w.shape:
+                return _padded(w.t(), wp.t().shape, dtype)
+            return wp.t().contiguous()
+
+        tr = dict(w1t=transposed(w1, w1p), w2t=transposed(w2, w2p), wst=transposed(ws, wsp))
     return PackedWeights(w1p, b1p, w2p, b2p, wsp, c1, c1p, h4, p, **tr)
 
 
@@ -803,14 +823,105 @@ class _BlockCore2In(torch.autograd.Function):
                 dws.to(ws.dtype), None, None)
 
 
+def _unpack(packed, c2=0):
+    """(w1, b1, w2, b2, ws) out of a pack: the padding dropped, the parts'
+    rows joined (the concat layout)."""
+    pk = packed
+
+    def rows(w):
+        return torch.cat([w[:pk.c1], w[pk.c1p:pk.c1p + c2]]) if c2 else w[:pk.c1]
+
+    return (rows(pk.w1)[:, :pk.h4], pk.b1[:pk.h4], pk.w2[:pk.h4, :pk.p], pk.b2[:pk.p],
+            rows(pk.ws)[:, :pk.p])
+
+
+def _fake_out(h, p):
+    """The output the forward kernels write: (B, P, H, W) in h's dtype,
+    channels_last."""
+    b, _, hh, ww = h.shape
+    return torch.empty((b, p, hh, ww), dtype=h.dtype, device=h.device, memory_format=CL)
+
+
+@torch.library.custom_op("dsgan::block_core", mutates_args=(), device_types="cuda")
+def block_core_op(h: torch.Tensor, x: torch.Tensor, mean: torch.Tensor, rsig: torch.Tensor,
+                  w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                  ws: torch.Tensor, w1t: Optional[torch.Tensor], w2t: Optional[torch.Tensor],
+                  wst: Optional[torch.Tensor], c1p: int, h4: int, p: int,
+                  gelu: str) -> torch.Tensor:
+    """K1 as a registered op, on the packed weights (``pack_weights``'s
+    fields): on a CUDA tensor the kernel, counted in ``block_core.launches``."""
+    packed = PackedWeights(w1, b1, w2, b2, ws, h.shape[1], c1p, h4, p, w1t, w2t, wst)
+    return block_core(h, x, mean, rsig, None, None, None, None, None, gelu, packed=packed)
+
+
+@block_core_op.register_kernel("cpu")
+def _block_core_op_cpu(h, x, mean, rsig, w1, b1, w2, b2, ws, w1t, w2t, wst, c1p, h4, p, gelu):
+    packed = PackedWeights(w1, b1, w2, b2, ws, h.shape[1], c1p, h4, p)
+    return block_core_reference(h, x, mean, rsig, *_unpack(packed), gelu)
+
+
+@block_core_op.register_fake
+def _block_core_op_fake(h, x, mean, rsig, w1, b1, w2, b2, ws, w1t, w2t, wst, c1p, h4, p, gelu):
+    return _fake_out(h, p)
+
+
+@torch.library.custom_op("dsgan::block_core2", mutates_args=(), device_types="cuda")
+def block_core2_op(ha: torch.Tensor, hb: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
+                   ma: torch.Tensor, ra: torch.Tensor, mb: torch.Tensor, rb: torch.Tensor,
+                   w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                   ws: torch.Tensor, w1t: Optional[torch.Tensor], w2t: Optional[torch.Tensor],
+                   wst: Optional[torch.Tensor], c1p: int, h4: int, p: int,
+                   gelu: str) -> torch.Tensor:
+    """K3 as a registered op, on the packed weights: on a CUDA tensor the
+    kernel, counted in ``block_core2.launches``."""
+    packed = PackedWeights(w1, b1, w2, b2, ws, ha.shape[1], c1p, h4, p, w1t, w2t, wst)
+    return block_core2(ha, hb, xa, xb, ma, ra, mb, rb, None, None, None, None, None, gelu,
+                       packed=packed)
+
+
+@block_core2_op.register_kernel("cpu")
+def _block_core2_op_cpu(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, w1t, w2t, wst, c1p,
+                        h4, p, gelu):
+    packed = PackedWeights(w1, b1, w2, b2, ws, ha.shape[1], c1p, h4, p)
+    return block_core2_reference(ha, hb, xa, xb, ma, ra, mb, rb, *_unpack(packed, hb.shape[1]),
+                                 gelu)
+
+
+@block_core2_op.register_fake
+def _block_core2_op_fake(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, b2, ws, w1t, w2t, wst, c1p,
+                         h4, p, gelu):
+    return _fake_out(ha, p)
+
+
+def _op_weights(packed):
+    """A pack as the ops' weight arguments."""
+    return (packed.w1, packed.b1, packed.w2, packed.b2, packed.ws, packed.w1t, packed.w2t,
+            packed.wst, packed.c1p, packed.h4, packed.p)
+
+
+def _records(*tensors):
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def block_core_in(h, x, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
-    """InstanceNorm(h) -> MLP -> + x @ Ws, differentiable: K1 forward, K2
-    backward. ``h``, ``x``: (B, C, H, W)."""
-    return _BlockCoreIn.apply(h, x, w1, b1, w2, b2, ws, gelu, packed)
+    """InstanceNorm(h) -> MLP -> + x @ Ws. ``h``, ``x``: (B, C, H, W). Where
+    autograd records: differentiable, K1 forward, K2 backward. Otherwise
+    the op ``dsgan::block_core`` on ``packed``, or on a pack made here."""
+    if _records(h, x, w1, b1, w2, b2, ws):
+        return _BlockCoreIn.apply(h, x, w1, b1, w2, b2, ws, gelu, packed)
+    if packed is None:
+        packed = pack_weights(w1, b1, w2, b2, ws, h.dtype)
+    return torch.ops.dsgan.block_core(h, x, *instance_stats(h), *_op_weights(packed), gelu)
 
 
 def block_core2_in(ha, hb, xa, xb, w1, b1, w2, b2, ws, gelu="tanh", packed=None):
     """The two-input block core on the parts a = (ha, xa), b = (hb, xb),
     equal to ``block_core_in`` on their channel concat: K3 forward, K4
-    backward."""
-    return _BlockCore2In.apply(ha, hb, xa, xb, w1, b1, w2, b2, ws, gelu, packed)
+    backward where autograd records, else the op ``dsgan::block_core2``."""
+    if _records(ha, hb, xa, xb, w1, b1, w2, b2, ws):
+        return _BlockCore2In.apply(ha, hb, xa, xb, w1, b1, w2, b2, ws, gelu, packed)
+    if packed is None:
+        packed = pack_weights(w1, b1, w2, b2, ws, ha.dtype, c1=ha.shape[1])
+    return torch.ops.dsgan.block_core2(ha, hb, xa, xb, *instance_stats(ha), *instance_stats(hb),
+                                       *_op_weights(packed), gelu)

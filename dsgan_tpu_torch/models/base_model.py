@@ -217,9 +217,9 @@ class BaseModel:
         raise NotImplementedError
 
     def eval(self):
-        """Put the networks in eval mode (reference base_model.py:48-52).
-        The eval build of G is already in it and no port network has
-        dropout or batch statistics, so no output moves."""
+        """Put the networks in eval mode (reference base_model.py:48-52):
+        dropout off, BatchNorm on its running statistics. The eval build of
+        G is already in it."""
         for net in self._networks().values():
             net.eval()
         self.is_eval = True

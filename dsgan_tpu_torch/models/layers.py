@@ -1,4 +1,9 @@
-"""Shared building blocks: the GELU flavours and the shared-slope PReLU."""
+"""Shared building blocks (port of ``dsgan_tpu/models/layers.py``): the
+GELU flavours, the shared-slope PReLU, the ``--norm`` layers, and the
+torch layers the zoo builds from, each computing in its input's dtype with
+its weights cast at use, as the JAX package's layers do (f32 parameters,
+a bf16 compute dtype).
+"""
 
 import torch
 import torch.nn.functional as F
@@ -20,11 +25,163 @@ def gelu(x, mode="auto"):
     return F.gelu(x, approximate="tanh" if gelu_is_tanh(mode, x.dtype) else "none")
 
 
-def PReLU():
-    """torch ``nn.PReLU()``: one learnable slope shared by all channels, 0.25."""
-    return nn.PReLU(num_parameters=1, init=0.25)
+def cast(t, dtype):
+    """``t`` in ``dtype``: itself where it already is (no op to run or to
+    trace), else its cast; None stays None."""
+    return t if t is None or t.dtype == dtype else t.to(dtype)
 
 
 def prelu(x, module):
     """``module`` (an ``nn.PReLU``) applied with its slope cast to x's dtype."""
-    return F.prelu(x, module.weight.to(x.dtype))
+    return F.prelu(x, cast(module.weight, x.dtype))
+
+
+class PReLU(nn.PReLU):
+    """torch ``nn.PReLU()``: one learnable slope shared by all channels,
+    0.25, cast to the input's dtype at use."""
+
+    def __init__(self):
+        super().__init__(num_parameters=1, init=0.25)
+
+    def forward(self, x):
+        return prelu(x, self)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with its weight and bias cast to the input's dtype."""
+
+    def forward(self, x):
+        return self._conv_forward(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (IOHW weight, torch geometry) with its weight
+    and bias cast to the input's dtype."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype), self.stride,
+                                  self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class InstanceNorm(nn.Module):
+    """Parameter-free InstanceNorm with the JAX package's statistics."""
+
+    def forward(self, x):
+        from dsgan_tpu_torch.ops.norm import instance_norm
+
+        return instance_norm(x)
+
+
+class BatchNorm2d(nn.Module):
+    """``--norm batch`` as the JAX package's ``Norm("batch")`` computes it
+    (torch ``BatchNorm2d`` semantics): in train mode the batch statistics
+    in f32, mean over (B, H, W) and the biased variance mean((x - mean)^2),
+    and the running averages updated in place with momentum 0.1 and the
+    variance unbiased by n / (n - 1); in eval mode the running averages.
+    y = (x - mean) * rsqrt(var + 1e-5) * weight + bias in f32, rounded once
+    to x's dtype. Parameters and buffers stay f32."""
+
+    def __init__(self, num_features, momentum=0.1, eps=1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x):
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3))
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                m = self.momentum
+                self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                self.running_var.copy_((1.0 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = ((xf - mean[:, None, None]) * torch.rsqrt(var + self.eps)[:, None, None]
+             * self.weight.float()[:, None, None] + self.bias.float()[:, None, None])
+        return y.to(x.dtype)
+
+
+def Norm(kind, num_features):
+    """The ``--norm`` layer: ``instance`` (parameter-free), ``batch``, ``none``."""
+    if kind == "instance":
+        return InstanceNorm()
+    if kind == "batch":
+        return BatchNorm2d(num_features)
+    if kind == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"normalization layer [{kind}] is not found")
+
+
+def norm_uses_bias(kind):
+    """Conv bias policy: a bias unless BatchNorm follows (reference
+    networks.py:85-88)."""
+    return kind != "batch"
+
+
+class Dropout(nn.Module):
+    """Dropout(0.5) in train mode: keep with probability 1 - p, scaled by
+    1 / (1 - p), as flax's ``nn.Dropout`` does; the keep mask drawn from
+    ``generator`` (``set_dropout_generator``; the global one while none is
+    set). The identity in eval mode."""
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(net, generator):
+    """Draw every ``Dropout`` of ``net`` from ``generator``; returns how many."""
+    n = 0
+    for m in net.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+            n += 1
+    return n
+
+
+def pad2d(x, p, mode="reflect"):
+    """``ReflectionPad2d`` (``reflect``) or ``ReplicationPad2d`` (``replicate``)
+    of W, then of H, built from slices, flips and a concat: the same values
+    as ``F.pad``, but a backward without atomic adds. ``F.pad``'s reflect and
+    replicate backward on CUDA adds the border's gradients atomically, in an
+    order that changes from run to run, so a train step would not repeat
+    bit for bit."""
+    if mode not in ("reflect", "replicate"):
+        raise NotImplementedError(f"padding [{mode}] is not implemented")
+
+    def sides(t, dim):
+        n = t.shape[dim]
+        if mode == "reflect":
+            lo, hi = t.narrow(dim, 1, p).flip(dim), t.narrow(dim, n - 1 - p, p).flip(dim)
+        else:
+            size = list(t.shape)
+            size[dim] = p
+            lo, hi = t.narrow(dim, 0, 1).expand(size), t.narrow(dim, n - 1, 1).expand(size)
+        return torch.cat([lo, t, hi], dim)
+
+    return sides(sides(x, 3), 2)
+
+
+class Pad(nn.Module):
+    """A padding layer of the reference's Sequentials (no parameters)."""
+
+    def __init__(self, p, mode="reflect"):
+        super().__init__()
+        self.p, self.mode = p, mode
+
+    def forward(self, x):
+        return pad2d(x, self.p, self.mode)

@@ -21,8 +21,10 @@ Streams:
 Every ConvNeXt block's core after its depthwise conv runs
 ``kernels.block_core``: K1 forward and K2 backward at c1-c5, K3 forward
 and K4 backward (the two-input form, reading the decoder's (upsampled,
-skip) pair unconcatenated) at uc1-uc4. On a CPU tensor the same calls run
-their plain PyTorch versions.
+skip) pair unconcatenated) at uc1-uc4. A forward that autograd does not
+record (serving, eval, an exported graph) reaches K1 / K3 through the
+registered ops ``dsgan::block_core`` / ``dsgan::block_core2``. On a CPU
+tensor the same calls run their plain PyTorch versions.
 
 Precision follows the JAX package (``models/layers.py``): every layer
 computes in its input's dtype and casts its weights to it at use, so a
@@ -38,14 +40,14 @@ from torch import nn
 
 from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.kernels.block_core import block_core2_in, block_core_in, pack_weights
-from dsgan_tpu_torch.models.layers import PReLU, gelu, gelu_is_tanh, prelu
+from dsgan_tpu_torch.models.layers import PReLU, cast, gelu, gelu_is_tanh, prelu
 
 CL = torch.channels_last
 
 
 def _w(t, x):
-    """A weight cast to the dtype ``x`` computes in (no copy if it is already)."""
-    return None if t is None else t.to(x.dtype)
+    """A weight cast to the dtype ``x`` computes in (itself if it is already)."""
+    return cast(t, x.dtype)
 
 
 class ChannelAttention(nn.Module):
@@ -87,15 +89,25 @@ class ConvNeXtBlock(nn.Module):
         """(w1, b1, w2, b2, ws) in the JAX orientation, cast to ``dtype``:
         differentiable, so the kernels' weight gradients reach the
         parameters."""
-        return tuple(t.to(dtype) for t in (
+        return tuple(cast(t, dtype) for t in (
             self.pwconv1.weight.t(), self.pwconv1.bias, self.pwconv2.weight.t(),
             self.pwconv2.bias, self.shortcut.weight[:, :, 0, 0].t()))
 
-    def _packed(self, dtype, c1):
-        """Kernel-layout weights, packed outside autograd and kept while the
-        parameters stay put (an optimizer step bumps their version)."""
+    def _packed(self, x, c1):
+        """Kernel-layout weights for a CUDA input, packed outside autograd
+        and kept while the parameters stay put (an optimizer step bumps
+        their version). None where no pack may be kept: on the CPU, while
+        ``torch.export`` traces (fake tensors have no address), and where the
+        weights are not this module's parameters (an int8 serving module
+        hands in dequantized tensors made anew at each call) or are inference
+        tensors, which keep no version; the block core then packs them with
+        plain, traceable ops."""
         params = (self.pwconv1.weight, self.pwconv1.bias, self.pwconv2.weight,
                   self.pwconv2.bias, self.shortcut.weight)
+        if (not x.is_cuda or torch.compiler.is_compiling()
+                or not all(isinstance(p, nn.Parameter) and not p.is_inference() for p in params)):
+            return None
+        dtype = x.dtype
         key = (dtype, c1) + tuple((p.data_ptr(), p._version) for p in params)
         if key != self._pack_key:
             with torch.no_grad():
@@ -109,7 +121,7 @@ class ConvNeXtBlock(nn.Module):
         gelu_flavour = "tanh" if gelu_is_tanh(self.gelu_mode, x.dtype) else "erf"
         wd, bd = _w(self.dwconv.weight, x), _w(self.dwconv.bias, x)
         weights = self._weights(x.dtype)
-        packed = self._packed(x.dtype, c1) if x.is_cuda else None
+        packed = self._packed(x, c1)
         if x2 is None:
             h = ops.conv2d(x, wd, bd, padding=3, groups=c1).contiguous(memory_format=CL)
             return block_core_in(h, x, *weights, gelu=gelu_flavour, packed=packed)

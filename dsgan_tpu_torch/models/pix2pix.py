@@ -8,10 +8,12 @@ vanilla GAN loss):
   1. normalize the uint8 inputs; one G forward, its graph kept;
   2. the replay-pool query on the conditional [A, fake] pairs (the fake
      alone with ``use_condition`` off);
-  3. the D update on the stacked [fake; real] batch (one D application;
-     valid for D's per-sample norms):
-     0.5 * (GAN(D(fake), 0) + GAN(D(real), 1)), one Adam step; with
-     ``use_gan`` off, no D update and the D losses are 0;
+  3. the D update: 0.5 * (GAN(D(fake), 0) + GAN(D(real), 1)), one Adam
+     step; D runs once on the stacked [fake; real] batch where its norms
+     are per sample (``fuse_d_batch``), else on the fake batch and then the
+     real one, the reference's order, so that BatchNorm's batch statistics
+     and running averages are those of each batch; with ``use_gan`` off,
+     no D update and the D losses are 0;
   4. the G loss against the *updated* D: GAN * w_gan + L1 + VGG * w_vgg +
      TV * w_tv + w_ss * (1 - SSIM), with the target's VGG features under
      ``no_grad``; its gradient with respect to the fake image only, so
@@ -19,6 +21,13 @@ vanilla GAN loss):
   5. one G backward from that gradient (K2 / K4 at every ConvNeXt block
      on the card), one Adam step;
   6. uint8 PSNR / SSIM on the device.
+
+Under ``--norm batch`` a step updates G's running statistics once (its
+forward) and D's three times (fake, real, and the G loss's forward), as
+the JAX step does (``dsgan_tpu/models/pix2pix.py:142-144,213-218``): the
+pool, the metrics and the visuals run no train-mode forward. Dropout
+(the resnet and unet generators without ``--no_dropout``) draws its masks
+from the state's own generator.
 
 Adam is ``optax.scale_by_adam(b1, 0.999, eps 1e-8)`` with the learning
 rate applied after, which ``torch.optim.Adam(betas=(b1, 0.999), eps=1e-8)``
@@ -37,7 +46,8 @@ import torch
 
 from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.models.base_model import BaseModel, ChainedStep
-from dsgan_tpu_torch.models.registry import define_D, define_G, define_vgg
+from dsgan_tpu_torch.models.layers import set_dropout_generator
+from dsgan_tpu_torch.models.registry import define_D, define_G, define_vgg, generator_entries
 from dsgan_tpu_torch.utils import checkpoint as ckpt
 from dsgan_tpu_torch.utils.convert import (
     load_params_npz,
@@ -63,13 +73,17 @@ class Pix2PixConfig:
     beta1: float = 0.5
     # dtype of the image path (None: keep the normalized inputs' f32)
     compute_dtype: Any = None
+    # one D application on [fake; real]: valid for per-sample norms
+    # (instance / none), not for BatchNorm, whose batch statistics differ
+    fuse_d_batch: bool = True
 
 
 @dataclasses.dataclass
 class Pix2PixState:
-    """The networks, their optimizers, the replay pool and the step counter
-    (a 0-d int64 tensor on the networks' device, so that a replayed step
-    advances it); a step updates them in place."""
+    """The networks (BatchNorm running statistics are their buffers), their
+    optimizers, the replay pool, the step counter (a 0-d int64 tensor on
+    the networks' device, so that a replayed step advances it) and the
+    generator G's dropout draws from; a step updates them in place."""
     netG: torch.nn.Module
     netD: torch.nn.Module
     vgg: Optional[torch.nn.Module]
@@ -77,6 +91,7 @@ class Pix2PixState:
     opt_D: torch.optim.Optimizer
     pool: ImagePool
     step: torch.Tensor
+    dropout: torch.Generator
 
     def state_dict(self):
         """Everything a step reads and writes, for an exact resume. The
@@ -85,7 +100,8 @@ class Pix2PixState:
         return {"netG": self.netG.state_dict(), "netD": self.netD.state_dict(),
                 "opt_G": self.opt_G.state_dict(), "opt_D": self.opt_D.state_dict(),
                 "pool_images": pool.images, "pool_count": pool.count,
-                "pool_generator": pool.generator.get_state(), "step": self.step}
+                "pool_generator": pool.generator.get_state(), "step": self.step,
+                "dropout_generator": self.dropout.get_state()}
 
     def load_state_dict(self, st):
         """Load a ``state_dict`` written in either mode (card or CPU)."""
@@ -97,6 +113,8 @@ class Pix2PixState:
         self.pool.count = int(st["pool_count"])
         self.pool.generator.set_state(st["pool_generator"])
         self.step.fill_(int(st["step"]))
+        if "dropout_generator" in st:  # checkpoints before the zoo lack it
+            self.dropout.set_state(st["dropout_generator"])
 
 
 def make_adam(params, beta1):
@@ -139,22 +157,25 @@ def load_adam(opt, sd):
 
 def init_state(netG, netD, vgg, cfg, size, d_input_nc=6, seed=0):
     """Adam on G and D, the pool of (d_input_nc, *size) images in the
-    compute dtype on G's device, its draws seeded from ``seed``, and the
-    step counter at 0."""
+    compute dtype on G's device, its draws seeded from ``seed``, the step
+    counter at 0, and G's dropout generator, seeded from ``seed + 1``."""
     dev = next(netG.parameters()).device
     pool = ImagePool(cfg.pool_size, (d_input_nc, *size), cfg.compute_dtype or torch.float32,
                      dev, seed)
+    dropout = torch.Generator(device=dev).manual_seed(seed + 1)
+    set_dropout_generator(netG, dropout)
     return Pix2PixState(netG, netD, vgg, make_adam(netG.parameters(), cfg.beta1),
                         make_adam(netD.parameters(), cfg.beta1), pool,
-                        torch.zeros((), dtype=torch.int64, device=dev))
+                        torch.zeros((), dtype=torch.int64, device=dev), dropout)
 
 
 def chained_train_step(step, cfg, warmup=1):
     """``step`` k steps a chunk (``ChainedStep``): captured once the
     replay pool is full (its host-side insert-or-replay branch then stays
-    put), with the pool's generator registered with the graph."""
+    put), with the pool's and the dropout's generators registered with the
+    graph."""
     return ChainedStep(step, ready=lambda s: not cfg.use_gan or s.pool.full,
-                       generators=lambda s: (s.pool.generator,), warmup=warmup)
+                       generators=lambda s: (s.pool.generator, s.dropout), warmup=warmup)
 
 
 def images(x, dtype):
@@ -177,6 +198,15 @@ def _target_levels(raw, real_B):
 def d_input(cfg, real_A, img):
     """What D sees of an image: the [A, image] pair, or the image alone."""
     return torch.cat([real_A, img], 1) if cfg.use_condition else img
+
+
+def _split_scales(pred, n):
+    """A D output on the stacked [fake; real] batch (a tensor, or a
+    multiscale D's nested lists) -> (fake part, real part)."""
+    if isinstance(pred, (list, tuple)):
+        pairs = [_split_scales(p, n) for p in pred]
+        return [p[0] for p in pairs], [p[1] for p in pairs]
+    return pred[:n], pred[n:]
 
 
 def generator_loss(cfg, state, real_A, real_B, fake, feats_real):
@@ -215,9 +245,13 @@ def make_train_step(cfg: Pix2PixConfig):
         if cfg.use_gan:
             fake_AB = state.pool.query(d_input(cfg, real_A, fake_sg))
             real_AB = d_input(cfg, real_A, real_B)
-            both = state.netD(torch.cat([fake_AB, real_AB], 0))
-            loss_fake = ops.gan_loss(both[:fake_AB.shape[0]], False, cfg.gan_mode)
-            loss_real = ops.gan_loss(both[fake_AB.shape[0]:], True, cfg.gan_mode)
+            if cfg.fuse_d_batch:
+                both = state.netD(torch.cat([fake_AB, real_AB], 0))
+                pred_fake, pred_real = _split_scales(both, fake_AB.shape[0])
+            else:
+                pred_fake, pred_real = state.netD(fake_AB), state.netD(real_AB)
+            loss_fake = ops.gan_loss(pred_fake, False, cfg.gan_mode)
+            loss_real = ops.gan_loss(pred_real, True, cfg.gan_mode)
             loss_D = 0.5 * (loss_fake + loss_real)
             state.opt_D.zero_grad(set_to_none=True)
             loss_D.backward()
@@ -275,15 +309,16 @@ class Pix2PixModel(BaseModel):
         self.loss_names = ["G_GAN", "G_L1", "D_real", "D_fake"]
         self.visual_names = ["real_A", "fake_B", "real_B"]
         dtype = torch.bfloat16 if opt.dtype == "bfloat16" else torch.float32
+        self.dtype = dtype
         self.compute_dtype = dtype if dtype == torch.bfloat16 else None
         dev = self.device
-        # training: f32 parameters cast at use; eval: the serving build,
-        # whose parameters are stored in the compute dtype (a train
-        # checkpoint's f32 weights are cast once, on load, to the values a
-        # cast at use gives), as the JAX package builds its inference G
+        # training: f32 parameters cast at use; eval: the serving build
+        # (``registry.serving_build``), as the JAX package builds its
+        # inference G
         self.netG = define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.which_model_netG,
-                             dtype=dtype, device=dev, gelu_mode=opt.gelu, seed=opt.seed,
-                             train=self.isTrain)
+                             norm=opt.norm, use_dropout=not opt.no_dropout,
+                             init_type=opt.init_type, dtype=dtype, device=dev,
+                             gelu_mode=opt.gelu, seed=opt.seed, train=self.isTrain)
         self.state = None
         if not self.isTrain:
             return
@@ -292,7 +327,8 @@ class Pix2PixModel(BaseModel):
         # default BCE-with-logits on raw logits; --no_lsgan gives D a
         # sigmoid and the MSE criterion
         self.netD = define_D(d_input_nc, opt.ndf, opt.which_model_netD, opt.n_layers_D,
-                             dtype=dtype, device=dev, seed=opt.seed + 1, use_sigmoid=opt.no_lsgan)
+                             norm=opt.norm, init_type=opt.init_type, dtype=dtype, device=dev,
+                             seed=opt.seed + 1, use_sigmoid=opt.no_lsgan)
         use_vgg = float(opt.w_vgg) != 0.0
         vgg = None
         if use_vgg:
@@ -316,7 +352,7 @@ class Pix2PixModel(BaseModel):
             pool_size=opt.pool_size,
             w_gan=float(opt.w_gan), w_vgg=float(opt.w_vgg), w_tv=float(opt.w_tv),
             w_ss=float(opt.w_ss), use_vgg=use_vgg, beta1=opt.beta1,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, fuse_d_batch=opt.norm != "batch")
         self.state = init_state(self.netG, self.netD, vgg, self.cfg,
                                 (opt.fineSize_h, opt.fineSize_w), d_input_nc, seed=opt.seed)
         self._step_fn = make_train_step(self.cfg)
@@ -458,11 +494,23 @@ class Pix2PixModel(BaseModel):
         if self.isTrain:
             return BaseModel.load_networks(self, which_epoch)
         # inference only: the generator out of a train checkpoint
-        which_epoch = self._resolve_epoch(which_epoch)
-        self.netG.load_state_dict(ckpt.restore_state(self.save_dir, which_epoch)["netG"])
-        print(f"loaded generator from epoch {which_epoch} checkpoint")
+        self.netG.load_state_dict(self.generator_state(which_epoch))
 
     def load_generator_npz(self, path):
         """Generator weights from a JAX-layout params .npz (the JAX package's
         trained generators, or a reference .pth through its converter)."""
-        self.netG.load_state_dict(state_dict_from_jax(load_params_npz(path)))
+        self.netG.load_state_dict(self.generator_state(npz=path))
+
+    def generator_state(self, which_epoch=None, npz=None):
+        """The generator's ``state_dict`` in f32 (BatchNorm running
+        statistics included): from the JAX-layout params ``npz`` (running
+        statistics at their start values), else from the ``which_epoch``
+        train checkpoint."""
+        opt = self.opt
+        if npz:
+            entries = generator_entries(opt.input_nc, opt.output_nc, opt.ngf,
+                                        opt.which_model_netG, opt.norm, not opt.no_dropout)
+            return state_dict_from_jax(load_params_npz(npz), entries)
+        which_epoch = self._resolve_epoch(which_epoch)
+        print(f"loaded generator from epoch {which_epoch} checkpoint")
+        return ckpt.restore_state(self.save_dir, which_epoch)["netG"]

@@ -1,11 +1,17 @@
-"""Factories, seeded parameters and the model registry (port of the
-MixConvNeXtML, PatchGAN and VGG16 parts of ``dsgan_tpu/models/
-registry.py`` and ``models/vgg.py``, and of its ``create_model``).
+"""Factories, seeded parameters and the model registry (port of
+``dsgan_tpu/models/registry.py`` and the VGG part of ``models/vgg.py``,
+and of its ``create_model``).
 
-Every factory builds its module on ``device`` (None: the CUDA card) from a
-JAX-layout parameter tree, either given (``params``) or drawn with numpy
-from ``seed``: N(0, 0.02) kernels, zero biases, PReLU slopes 0.25, as the
-JAX package's ``init_params`` with ``init_type="normal"``.
+``define_G`` takes every ``--which_model_netG`` of the JAX package
+(``registry.py:33-68``): ``MixConvNeXtML``, ``resnet_9blocks``,
+``resnet_6blocks``, ``unet_128``, ``unet_256``, ``gll``, ``cascaded``,
+``unetpp``, ``wnet``; ``define_D`` every ``--which_model_netD``
+(``basic``, ``n_layers``, ``pixel``, ``multi``). Every factory builds its
+module on ``device`` (None: the CUDA card) from a JAX-layout parameter
+tree, either given (``params``, with ``batch_stats`` for BatchNorm) or
+drawn with numpy from ``seed`` under ``--init_type`` (``ops.initializers``:
+kernels redrawn, biases 0, BatchNorm scales N(1, 0.02), PReLU slopes 0.25),
+as the JAX package's ``init_params`` / ``reinit_params`` do.
 """
 
 import importlib
@@ -13,10 +19,16 @@ import importlib
 import torch
 
 from dsgan_tpu_torch.device import resolve_device
-from dsgan_tpu_torch.models.discriminators import NLayerDiscriminator
+from dsgan_tpu_torch.models import blocks_extra, generators_zoo
+from dsgan_tpu_torch.models.discriminators import (
+    MultiscaleDiscriminator,
+    NLayerDiscriminator,
+    PixelDiscriminator,
+)
 from dsgan_tpu_torch.models.mixconvnext import MixConvNeXtML
 from dsgan_tpu_torch.models.vgg import Vgg16Features, num_convs
 from dsgan_tpu_torch.ops.initializers import init_tree
+from dsgan_tpu_torch.utils import convert
 from dsgan_tpu_torch.utils.convert import (
     jax_shapes,
     nlayer_entries,
@@ -25,19 +37,31 @@ from dsgan_tpu_torch.utils.convert import (
     vgg_entries,
 )
 
+GENERATORS = ("MixConvNeXtML", "resnet_9blocks", "resnet_6blocks", "unet_128", "unet_256", "gll",
+              "cascaded", "unetpp", "wnet")
+DISCRIMINATORS = ("basic", "n_layers", "pixel", "multi")
 
-def _init(module_fn, seed, entries=None):
+
+def _meta(module_fn):
+    with torch.device("meta"):
+        return module_fn()
+
+
+def _init(module_fn, seed, entries=None, init_type="normal"):
     """A module's parameters in the JAX tree and layout, drawn from ``seed``."""
-    with torch.device("meta"):
-        shapes = {k: tuple(v.shape) for k, v in module_fn().state_dict().items()}
-    return unflatten(init_tree(jax_shapes(shapes, entries), seed))
+    net = _meta(module_fn)
+    if callable(entries):
+        entries = entries(net)
+    shapes = {k: tuple(v.shape) for k, v in net.state_dict().items()}
+    return unflatten(init_tree(jax_shapes(shapes, entries), seed, init_type))
 
 
-def _build(module_fn, params, entries, device):
-    with torch.device("meta"):
-        net = module_fn()
+def _build(module_fn, params, entries, device, batch_stats=None):
+    net = _meta(module_fn)
+    if callable(entries):
+        entries = entries(net)
     net = net.to_empty(device=device)
-    net.load_state_dict(state_dict_from_jax(params, entries))
+    net.load_state_dict(state_dict_from_jax(params, entries, batch_stats))
     return net
 
 
@@ -47,10 +71,10 @@ def init_params(seed=0):
     return _init(MixConvNeXtML, seed)
 
 
-def init_d_params(input_nc=6, ndf=32, n_layers=3, seed=0):
+def init_d_params(input_nc=6, ndf=32, n_layers=3, seed=0, norm="instance", init_type="normal"):
     """The PatchGAN's parameters in the JAX tree (``conv0 .. conv_out``)."""
-    return _init(lambda: NLayerDiscriminator(input_nc, ndf, n_layers), seed,
-                 nlayer_entries(n_layers))
+    return _init(lambda: NLayerDiscriminator(input_nc, ndf, n_layers, norm=norm), seed,
+                 nlayer_entries(n_layers, norm), init_type)
 
 
 def init_vgg_params(num_taps=4, seed=0):
@@ -59,48 +83,115 @@ def init_vgg_params(num_taps=4, seed=0):
     return _init(lambda: Vgg16Features(num_taps), seed, vgg_entries(num_convs(num_taps)))
 
 
-def define_G(input_nc, output_nc, ngf, which_model_netG, dtype=torch.bfloat16,
-             device=None, gelu_mode="auto", params=None, seed=0, train=False):
-    """Generator factory (reference networks.py:81-113). Only the flagship
-    ``MixConvNeXtML`` is ported (3 -> 3 channels; ``ngf`` is unused, as in
-    the reference). Weights come from ``params`` (a JAX-layout tree, e.g.
-    ``utils.convert.load_params_npz``) or else from ``init_params(seed)``.
-    ``device=None`` means the CUDA card; without one, pass ``device="cpu"``.
+def generator_spec(input_nc, output_nc, ngf, which_model_netG, norm="instance",
+                   use_dropout=False, gelu_mode="auto"):
+    """(module factory, entries) of a generator recipe (reference
+    networks.py:81-113; ``unetpp`` and ``wnet`` are the JAX package's
+    extension names). MixConvNeXtML maps 3 channels to 3 and ignores
+    ``ngf``, ``norm`` and ``use_dropout``, as in the reference."""
+    z, x = generators_zoo, blocks_extra
+    d = use_dropout
+    if which_model_netG == "MixConvNeXtML":
+        if (input_nc, output_nc) != (3, 3):
+            raise ValueError("MixConvNeXtML maps 3 channels to 3")
+        return (lambda: MixConvNeXtML(gelu_mode=gelu_mode)), None
+    if which_model_netG in ("resnet_9blocks", "resnet_6blocks"):
+        n = 9 if which_model_netG == "resnet_9blocks" else 6
+        return ((lambda: z.ResnetGenerator(input_nc, output_nc, ngf, n, norm, d)),
+                convert.resnet_entries(n, norm, d))
+    if which_model_netG in ("unet_128", "unet_256"):
+        n = 7 if which_model_netG == "unet_128" else 8
+        return ((lambda: z.UnetGenerator(input_nc, output_nc, n, ngf, norm, d)),
+                convert.unet_entries(n, norm, d))
+    if which_model_netG == "gll":
+        return ((lambda: z.LocalEnhancer(input_nc, output_nc, ngf, 3, 9, 1, 3, norm)),
+                convert.gll_entries(3, 9, 3, norm))
+    if which_model_netG == "cascaded":
+        return (lambda: z.CascadedGenerator(input_nc, output_nc, ngf)), convert.named_entries
+    if which_model_netG == "unetpp":
+        return (lambda: x.UnetPlusPlus(input_nc, output_nc, ngf, norm)), convert.unetpp_entries(norm)
+    if which_model_netG == "wnet":
+        return (lambda: x.WNet(input_nc, ngf, norm)), convert.wnet_entries(norm)
+    raise NotImplementedError(f"Generator model name [{which_model_netG}] is not recognized")
 
-    The serving build (``train=False``) stores the parameters in ``dtype``
-    and is in eval mode. The training build keeps them in f32, as the JAX
+
+def generator_entries(input_nc, output_nc, ngf, which_model_netG, norm="instance",
+                      use_dropout=False):
+    """The entries table (``utils.convert``) of a generator recipe."""
+    fn, entries = generator_spec(input_nc, output_nc, ngf, which_model_netG, norm, use_dropout)
+    return entries(_meta(fn)) if callable(entries) else entries
+
+
+def serving_build(net):
+    """``net`` as a serving build stores it: MixConvNeXtML's parameters cast
+    once to its compute dtype (the values a cast at use gives); the zoo
+    keeps f32 parameters (BatchNorm computes in f32 with them) and casts at
+    use. Returns ``net``."""
+    if isinstance(net, MixConvNeXtML) and net.compute_dtype is not None:
+        net.to(dtype=net.compute_dtype)
+        net.compute_dtype = None
+    return net
+
+
+def define_G(input_nc, output_nc, ngf, which_model_netG, norm="instance", use_dropout=False,
+             init_type="normal", dtype=torch.bfloat16, device=None, gelu_mode="auto",
+             params=None, batch_stats=None, seed=0, train=False):
+    """Generator factory (reference networks.py:81-113). Weights come from
+    ``params`` (a JAX-layout tree, e.g. ``utils.convert.load_params_npz``;
+    BatchNorm statistics from ``batch_stats``) or else are drawn from
+    ``seed`` under ``init_type``. ``device=None`` means the CUDA card;
+    without one, pass ``device="cpu"``.
+
+    The training build (``train=True``) keeps f32 parameters, as the JAX
     package does, computes in ``dtype`` with the weights cast at use, and
-    is in train mode."""
-    if which_model_netG != "MixConvNeXtML":
-        raise NotImplementedError(
-            f"generator [{which_model_netG}] is not ported yet; see ROADMAP.md queue A")
-    if (input_nc, output_nc) != (3, 3):
-        raise ValueError("MixConvNeXtML maps 3 channels to 3")
-    dev = resolve_device(device)
-    net = _build(lambda: MixConvNeXtML(gelu_mode=gelu_mode),
-                 init_params(seed) if params is None else params, None, dev)
-    if train:
-        net.compute_dtype = dtype
-        return net.train()
-    return net.to(dtype=dtype).eval()
-
-
-def define_D(input_nc, ndf, which_model_netD, n_layers_D=3, dtype=torch.bfloat16, device=None,
-             params=None, seed=0, use_sigmoid=False):
-    """Discriminator factory, the ``basic`` / ``n_layers`` subset of the
-    reference's (networks.py:115-131): the instance-norm PatchGAN with raw
-    logits (``use_sigmoid``: their sigmoid). f32 parameters, computing in
-    ``dtype``."""
-    if which_model_netD == "basic":
-        n_layers_D = 3
-    elif which_model_netD != "n_layers":
-        raise NotImplementedError(
-            f"discriminator [{which_model_netD}] is not ported yet; see ROADMAP.md queue A")
+    is in train mode. The serving build (``serving_build``) is in eval mode."""
+    fn, entries = generator_spec(input_nc, output_nc, ngf, which_model_netG, norm, use_dropout,
+                                 gelu_mode)
     dev = resolve_device(device)
     if params is None:
-        params = init_d_params(input_nc, ndf, n_layers_D, seed)
-    net = _build(lambda: NLayerDiscriminator(input_nc, ndf, n_layers_D, use_sigmoid=use_sigmoid),
-                 params, nlayer_entries(n_layers_D), dev)
+        params = _init(fn, seed, entries, init_type)
+    net = _build(fn, params, entries, dev, batch_stats)
+    net.compute_dtype = dtype
+    if train:
+        return net.train()
+    return serving_build(net).eval()
+
+
+def discriminator_spec(input_nc, ndf, which_model_netD, n_layers_D=3, norm="instance",
+                       use_sigmoid=False):
+    """(module factory, entries) of a discriminator recipe (reference
+    networks.py:115-131)."""
+    if which_model_netD in ("basic", "n_layers"):
+        n = 3 if which_model_netD == "basic" else n_layers_D
+        return ((lambda: NLayerDiscriminator(input_nc, ndf, n, use_sigmoid=use_sigmoid,
+                                             norm=norm)), nlayer_entries(n, norm))
+    if which_model_netD == "pixel":
+        return ((lambda: PixelDiscriminator(input_nc, ndf, norm, use_sigmoid)),
+                convert.named_entries)
+    if which_model_netD == "multi":
+        return ((lambda: MultiscaleDiscriminator(input_nc, ndf, n_layers_D, norm, use_sigmoid)),
+                convert.named_entries)
+    raise NotImplementedError(f"Discriminator model name [{which_model_netD}] is not recognized")
+
+
+def discriminator_entries(input_nc, ndf, which_model_netD, n_layers_D=3, norm="instance"):
+    """The entries table (``utils.convert``) of a discriminator recipe."""
+    fn, entries = discriminator_spec(input_nc, ndf, which_model_netD, n_layers_D, norm)
+    return entries(_meta(fn)) if callable(entries) else entries
+
+
+def define_D(input_nc, ndf, which_model_netD, n_layers_D=3, norm="instance", init_type="normal",
+             dtype=torch.bfloat16, device=None, params=None, batch_stats=None, seed=0,
+             use_sigmoid=False):
+    """Discriminator factory (reference networks.py:115-131): raw logits
+    (``use_sigmoid``: their sigmoid), f32 parameters, computing in
+    ``dtype``, in train mode."""
+    fn, entries = discriminator_spec(input_nc, ndf, which_model_netD, n_layers_D, norm,
+                                     use_sigmoid)
+    dev = resolve_device(device)
+    if params is None:
+        params = _init(fn, seed, entries, init_type)
+    net = _build(fn, params, entries, dev, batch_stats)
     net.compute_dtype = dtype
     return net.train()
 

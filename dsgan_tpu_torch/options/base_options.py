@@ -23,14 +23,6 @@ _UNSUPPORTED = (
     ("num_hosts", lambda v: v > 1, "multi-host runs are ROADMAP.md queue A item 13"),
     ("remat", bool, "rematerialization is not needed: the default recipe's batch 16 at "
                     "256x256 takes under 9 GiB of the H100's 80 GB"),
-    ("norm", lambda v: v != "instance", "--norm other than instance is ROADMAP.md queue A "
-                                        "item 14"),
-    ("which_model_netG", lambda v: v != "MixConvNeXtML",
-     "generators other than MixConvNeXtML are ROADMAP.md queue A item 14"),
-    ("which_model_netD", lambda v: v not in ("basic", "n_layers"),
-     "the pixel and multiscale discriminators are ROADMAP.md queue A item 14"),
-    ("init_type", lambda v: v != "normal", "init types other than normal are ROADMAP.md "
-                                           "queue A item 14"),
     ("model", lambda v: v == "cycle_gan", "CycleGAN is ROADMAP.md queue A item 15"),
     ("dataset_mode", lambda v: v == "unaligned",
      "the unaligned dataset comes with CycleGAN, ROADMAP.md queue A item 15"),
@@ -68,9 +60,11 @@ class BaseOptions:
                             help="generator base width (unused by MixConvNeXtML)")
         parser.add_argument("--ndf", type=int, default=32, help="discriminator base width")
         parser.add_argument("--which_model_netD", type=str, default="basic",
-                            help="discriminator recipe: basic | n_layers")
+                            help="discriminator recipe: basic | n_layers | pixel | multi")
         parser.add_argument("--which_model_netG", type=str, default="MixConvNeXtML",
-                            help="generator recipe: MixConvNeXtML")
+                            help="generator recipe: MixConvNeXtML | resnet_9blocks | "
+                                 "resnet_6blocks | unet_128 | unet_256 | gll | cascaded | unetpp | "
+                                 "wnet")
         parser.add_argument("--n_layers_D", type=int, default=3,
                             help="conv depth when --which_model_netD n_layers")
         parser.add_argument("--gpu_ids", type=str, default="0",
@@ -87,7 +81,8 @@ class BaseOptions:
         parser.add_argument("--checkpoints_dir", type=str, default="./checkpoints/",
                             help="directory that receives model checkpoints")
         parser.add_argument("--norm", type=str, default="instance",
-                            help="normalization inside the nets: instance")
+                            help="normalization inside the nets: instance | batch | none "
+                                 "(MixConvNeXtML has its own)")
         parser.add_argument("--serial_batches", action="store_true",
                             help="iterate the dataset in file order instead of sampling randomly")
         parser.add_argument("--display_winsize", type=int, default=256,
@@ -99,7 +94,8 @@ class BaseOptions:
         parser.add_argument("--display_port", type=int, default=8097,
                             help="kept for reference-CLI parity (visdom port)")
         parser.add_argument("--no_dropout", action="store_true",
-                            help="build the generator without dropout layers (MixConvNeXtML has none)")
+                            help="build the generator without dropout layers (the resnet and "
+                                 "unet generators have them; MixConvNeXtML has none)")
         parser.add_argument("--max_dataset_size", type=float, default=float("inf"),
                             help="cap on images read per phase (inf = use everything)")
         parser.add_argument("--resize_or_crop", type=str, default="resize_and_crop",
@@ -108,7 +104,8 @@ class BaseOptions:
         parser.add_argument("--no_flip", action="store_true",
                             help="disable random horizontal flips")
         parser.add_argument("--init_type", type=str, default="normal",
-                            help="weight init scheme: normal")
+                            help="weight init scheme: normal | xavier | kaiming | orthogonal "
+                                 "(gain 0.02)")
         parser.add_argument("--verbose", action="store_true", help="chatty network construction")
         parser.add_argument("--suffix", default="", type=str,
                             help="template appended to --name, e.g. {model}_{which_model_netG}")

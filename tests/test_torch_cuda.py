@@ -512,3 +512,88 @@ def test_failed_capture_raises(cuda):
     with pytest.raises(RuntimeError):
         chained.step({}, [torch.ones(4, device="cuda")], 0.1)
     assert chained.counts["eager"] == 0 and chained.graph is None
+
+
+def test_registered_ops_launch_the_kernels(cuda):
+    """dsgan::block_core / dsgan::block_core2 on CUDA tensors launch K1 / K3
+    (counted) and give the wrappers' output; their plain versions agree."""
+    rng = np.random.default_rng(8)
+    dtype = torch.bfloat16
+    h, x = _act(rng, 2, 64, 16, 16, dtype), _act(rng, 2, 64, 16, 16, dtype)
+    ha, hb, xa, xb = (_act(rng, 2, 32, 16, 16, dtype) for _ in range(4))
+    ws = _weights(rng, 64, 48, dtype)
+    pk = bc.pack_weights(*ws, dtype)
+    pk2 = bc.pack_weights(*ws, dtype, c1=32)
+    bc.block_core.launches = bc.block_core2.launches = 0
+    one = torch.ops.dsgan.block_core(h, x, *instance_stats(h), *bc._op_weights(pk), "tanh")
+    two = torch.ops.dsgan.block_core2(ha, hb, xa, xb, *instance_stats(ha), *instance_stats(hb),
+                                      *bc._op_weights(pk2), "tanh")
+    assert (bc.block_core.launches, bc.block_core2.launches) == (1, 1)
+    torch.testing.assert_close(one, bc.block_core(h, x, *instance_stats(h), *ws, packed=pk),
+                               rtol=0, atol=0)
+    _assert_close(one, bc.block_core_reference(h, x, *instance_stats(h), *ws), dtype)
+    stats = [*instance_stats(ha), *instance_stats(hb)]
+    _assert_close(two, bc.block_core2_reference(ha, hb, xa, xb, *stats, *ws), dtype)
+    with pytest.raises(ValueError, match="channels_last"):
+        torch.ops.dsgan.block_core(h.contiguous(), x, *instance_stats(h), *bc._op_weights(pk),
+                                   "tanh")
+
+
+def test_artifact_on_the_card_matches_serving_fn(cuda, tmp_path):
+    """The full-width bf16 generator exported at 64x64, loaded on the card
+    (the default device): 5 K1 + 4 K3 launches a forward, the serving
+    function's output (at most 0.1% of pixels one level off), float and w8."""
+    from dsgan_tpu_torch import export, serve
+    from dsgan_tpu_torch.models import define_G
+
+    net = define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.bfloat16, device="cuda", seed=2)
+    program, meta = export.export_generator(net, 64, 64, 3)
+    call, _ = export.load_artifact(export.save_artifact(str(tmp_path / "g.pt2"), program, meta))
+    x = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (3, 64, 64, 3),
+                                                           dtype=np.uint8)).cuda()
+    for quantize in (None, "w8"):
+        if quantize:
+            net32 = define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.bfloat16, device="cuda",
+                             seed=2, train=True).eval()
+            program, meta = export.export_generator(net32, 64, 64, 3, quantize=quantize)
+            call, _ = export.load_artifact(export.save_artifact(str(tmp_path / "q.pt2"), program,
+                                                                meta))
+        bc.block_core.launches = bc.block_core2.launches = 0
+        got = call(x)
+        torch.cuda.synchronize()
+        assert (bc.block_core.launches, bc.block_core2.launches) == (5, 4)
+        assert got.dtype == torch.uint8 and got.shape == (3, 64, 64, 3)
+        if quantize is None:
+            d = (got.int() - serve.serving_fn(net)(x).int()).abs()
+            assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+GENERATORS = [("resnet_9blocks", 64), ("resnet_6blocks", 64), ("unet_128", 128),
+              ("unet_256", 256), ("gll", 64), ("cascaded", 64), ("unetpp", 64), ("wnet", 64)]
+
+
+@pytest.mark.parametrize("name,size", GENERATORS)
+def test_zoo_forward_on_the_card_matches_the_cpu(cuda, monkeypatch, name, size):
+    """Each zoo generator (ngf 8, BatchNorm running statistics moved): f32 on
+    the card against f32 on the CPU (TF32 off), and a finite bf16 forward;
+    no block-core kernel runs."""
+    from dsgan_tpu_torch.models import define_G
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x = torch.from_numpy(np.random.default_rng(10).uniform(-1, 1, (2, 3, size, size))
+                         .astype(np.float32))
+    norm = "instance" if name == "cascaded" else "batch"
+    outs = {}
+    bc.block_core.launches = bc.block_core2.launches = 0
+    for dev in ("cpu", "cuda"):
+        net = define_G(3, 3, 8, name, norm=norm, dtype=torch.float32, device=dev, seed=4,
+                       train=True)
+        with torch.no_grad():
+            net(x.to(dev))  # one train forward: running statistics off their start
+            outs[dev] = net.eval()(x.to(dev)).cpu()
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], rtol=1e-3, atol=1e-4)
+    net.compute_dtype = torch.bfloat16
+    with torch.no_grad():
+        y = net(x.cuda())
+    assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+    assert (bc.block_core.launches, bc.block_core2.launches) == (0, 0)

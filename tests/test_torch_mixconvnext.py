@@ -80,5 +80,7 @@ def test_generator_matches_jax(params, jax_forward):
 
 
 def test_other_generators_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        define_G(3, 3, 64, "resnet_9blocks", device="cpu")
+    """Every recipe of the JAX package's define_G is ported; a name it does
+    not know is refused."""
+    with pytest.raises(NotImplementedError, match="not recognized"):
+        define_G(3, 3, 64, "resnet_12blocks", device="cpu")

@@ -60,11 +60,6 @@ def test_parse_writes_opt_txt_and_sets_no_process_state(tmp_path):
     (["--spatial_axis", "2"], "item 13"),
     (["--num_hosts", "2"], "item 13"),
     (["--remat"], "not needed"),
-    (["--norm", "batch"], "item 14"),
-    (["--which_model_netG", "resnet_9blocks"], "item 14"),
-    (["--which_model_netD", "pixel"], "item 14"),
-    (["--which_model_netD", "multi"], "item 14"),
-    (["--init_type", "xavier"], "item 14"),
     (["--model", "cycle_gan"], "item 15"),
     (["--dataset_mode", "unaligned"], "item 15"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
@@ -81,6 +76,22 @@ def test_unported_switches_raise_with_their_roadmap_item(tmp_path, argv, match):
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
 def test_runtime_switches_parse(tmp_path, argv, key, value):
     """The train CLI's runtime flags are ported: they parse to their values."""
+    opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path)] + argv)
+    assert getattr(opt, key) == value
+
+
+@pytest.mark.parametrize("argv,key,value", [
+    (["--norm", "batch"], "norm", "batch"),
+    (["--norm", "none"], "norm", "none"),
+    (["--which_model_netG", "resnet_9blocks"], "which_model_netG", "resnet_9blocks"),
+    (["--which_model_netG", "wnet"], "which_model_netG", "wnet"),
+    (["--which_model_netD", "pixel"], "which_model_netD", "pixel"),
+    (["--which_model_netD", "multi"], "which_model_netD", "multi"),
+    (["--init_type", "xavier"], "init_type", "xavier"),
+    (["--init_type", "orthogonal"], "init_type", "orthogonal"),
+], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
+def test_zoo_switches_parse(tmp_path, argv, key, value):
+    """The zoo's flags (ROADMAP queue A item 14) are ported: they parse."""
     opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path)] + argv)
     assert getattr(opt, key) == value
 
