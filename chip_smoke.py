@@ -64,8 +64,24 @@ Phases, each of which fails the run:
      replayed counts, finite losses, the checkpoints and the files of the
      JAX CLIs, the resumed step counter and LR, a ``metrics.csv`` mean
      row; ``cli_train`` lines of host times per run and one ``cli_eval``;
-  9. a step that cannot be captured must raise, not run eagerly;
- 10. one JSON line of kernel numbers, then the result line.
+  9. the zoo: its 8 generators' forwards, its BatchNorm + multiscale-D
+     recipe through the train CLI, and that recipe's replays against
+     eager steps (``zoo_phase``);
+ 10. CycleGAN (``cyclegan_phase``): full-width MixConvNeXtML G_A / G_B and
+     PatchGAN ndf 32 D_A / D_B, 256x256, bf16, pool 50, lambda_identity
+     0.5; 7 eager steps at batch 1 and at 16 (8 where 16 does not fit),
+     5 of them timed, with peak memory and a profiled step: 30 K1 + 24 K3
+     + 30 K2 + 24 K4 launches a step; the G_A / G_B gradient check under
+     ``CYCLE_GRAD_GATE`` with its faulty controls; 4 replays against 4
+     eager steps at batch 1 once 50 eager steps have filled both pools,
+     bit for bit; then the train CLI on unaligned PNGs (40 A, 48 B, batch
+     4, ``--steps_per_dispatch 4``, 2 epochs), its eval with random
+     Inception features (finite FID / KID rows, 4 generator forwards an
+     image) and the video CLI on 8 frames of its G_A (``temporal.csv``);
+ 11. FID (``fid_phase``): Inception pool3 features of 8 images on the card
+     (f32, TF32 off) against the CPU's, with ms a batch;
+ 12. a step that cannot be captured must raise, not run eagerly;
+ 13. one JSON line of kernel numbers, then the result line.
 
 ``--out DIR`` also writes the per-shape numbers to DIR/chip_smoke.json.
 """
@@ -107,6 +123,33 @@ ZOO = dict(generators=[("resnet_9blocks", 256), ("resnet_6blocks", 256), ("unet_
 GRAD_GATE = dict(block=5e-3, median=2e-2, ratio=1.05)
 CONTROLS = [("gain", 0.02), ("gain", 0.01), ("noise", 0.02), ("noise", 0.01)]
 MUST_FAIL = [f"{kind} {size}" for kind, size in CONTROLS]
+# the CycleGAN phase: full-width MixConvNeXtML G_A / G_B, PatchGAN ndf 32 D_A /
+# D_B, 256x256, bf16, pool 50, lambda_identity 0.5; steps timed at batch 1
+# (CycleGAN's default) and 16 (pix2pix's; half that where it does not fit); the
+# gradient check first, on the state as built, at grad_batch; the replay
+# comparison at batch 1 once 50 eager
+# steps have filled both pools; the train CLI on train_A / train_B unaligned
+# PNGs (12 steps an epoch at cli_batch 4, k = 4), its eval on `test` pairs with
+# random Inception features, the video CLI on `frames` frames
+CYCLE = dict(size=256, batches=(1, 16), warmup=2, steps=5, grad_batch=16, fill=50, replays=4,
+             train_A=40, train_B=48, cli_batch=4, k=4, test=4, frames=8)
+# K1 / K3 / K2 / K4 launches of one CycleGAN step with the identity terms:
+# six generator applications of 5 one-input and 4 two-input blocks
+CYCLE_PER_STEP = {"K1": 30, "K3": 24, "K2": 30, "K4": 24}
+# the CycleGAN step's gradient gate, over the 54 K2 / K4 calls of the six
+# applications at grad_batch: pix2pix's block and ratio limits; the median of
+# the whole generators set from readings on an H100 (PERF.md, "Gradient gate":
+# kernel vs plain path 0.0615, where each bf16 path sits 0.146 from the f32
+# gradient, against pix2pix's 0.010 and 0.034: the CycleGAN loss's bf16
+# gradient is that much noisier, its cycle terms most)
+CYCLE_GRAD_GATE = dict(GRAD_GATE, median=0.1)
+# the terms of the CycleGAN G loss and their K2 / K4 calls, each read alone by
+# ``--grad_terms`` to find which part sets the gradient readings
+CYCLE_TERMS = {"full": (("loss_G",), 54), "identity": (("loss_idt_A", "loss_idt_B"), 18),
+               "gan": (("loss_G_A", "loss_G_B"), 18), "cycle": (("loss_cycle_A", "loss_cycle_B"), 36)}
+# the FID phase: pool3 features of a batch of 256x256 images on the card (f32,
+# TF32 off) against the CPU's; max-abs error over max|CPU| and rel-L2
+FID = dict(batch=8, size=256, max_abs=1e-3, rel_l2=1e-4)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores (the f32 kernel's FMA path).
 HBM_BPS = 3.35e12
@@ -342,7 +385,9 @@ _CLASSES = (("block_core fwd (K1/K3)", ("block_core_kernel", "bc2_fwd_sm90", "bc
 
 def profile_run(torch, fn, label, **info):
     """Device time of one call of ``fn`` by kernel class, from
-    torch.profiler, and the share of its wall time the device sat idle."""
+    torch.profiler, and the share of its wall time the device sat idle; on
+    the host, the kernels it launched and its busiest operators by self CPU
+    time (the profiler's own cost included)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -363,9 +408,14 @@ def profile_run(torch, fn, label, **info):
             block_core[name[:120]] = count
     device_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:12]
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda k: -k[1])[:8]
     out = dict(info, wall_ms=wall_ms, device_ms=device_ms,
                idle_share=(1.0 - device_ms / wall_ms) if device_ms else None,
+               device_launches=sum(c for _, _, c in kernels),
                by_class_ms=by_class, top=[[n[:90], ms, c] for n, ms, c in top],
+               host_top=[[n[:60], ms, c] for n, ms, c in host],
                block_core_kernels=block_core)
     print(json.dumps({f"profile_{label}": out}))
     return out
@@ -653,6 +703,299 @@ def zoo_phase(torch, np, bc, card):
     return res
 
 
+def _write_pngs(np, d, n, size, rng, prefix):
+    from PIL import Image
+
+    os.makedirs(d, exist_ok=True)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
+            os.path.join(d, f"{prefix}_{i:02d}.png"))
+
+
+def _write_frames(np, d, n, size):
+    """``n`` frames of a smooth scene that moves 2 pixels a frame."""
+    from PIL import Image
+
+    os.makedirs(d)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    for t in range(n):
+        img = np.stack([np.sin(0.05 * (xx - 2 * t) + c) * np.cos(0.04 * (yy - 2 * t) - c)
+                        for c in (0.0, 1.0, 2.0)], -1)
+        Image.fromarray(((img + 1) * 127.5).astype(np.uint8)).save(
+            os.path.join(d, f"frame_{t:03d}.png"))
+
+
+def _expect(bc, per, n, what):
+    got, want = read_counts(bc), {k: v * n for k, v in per.items()}
+    if got != want:
+        fail(f"{what}: launch counts {got}, want {want} ({per} x {n})")
+    return got
+
+
+def cyclegan_build(torch, seed=0):
+    """A CycleGAN train state of the phase's recipe on the card (full-width
+    MixConvNeXtML G_A / G_B, PatchGAN ndf 32 D_A / D_B, bf16, pool 50,
+    lambda_identity 0.5), its step and its config."""
+    from dsgan_tpu_torch.models import cycle_gan, define_D, define_G
+
+    dev = torch.device("cuda")
+    cfg = cycle_gan.CycleGANConfig(pool_size=50, lambda_identity=0.5)
+    nets = [define_G(3, 3, 32, "MixConvNeXtML", dtype=torch.bfloat16, device=dev,
+                     seed=seed + i, train=True) for i in range(2)]
+    nets += [define_D(3, 32, "basic", dtype=torch.bfloat16, device=dev, seed=seed + 2 + i)
+             for i in range(2)]
+    return (cycle_gan.init_state(*nets, cfg, (CYCLE["size"],) * 2, seed=seed),
+            cycle_gan.make_cyclegan_step(cfg), cfg)
+
+
+def cyclegan_gradients(torch, np, bc, state, cfg, batch, term="full", enforce=True):
+    """``gradient_check`` of G_A's and G_B's block weights under
+    ``CYCLE_GRAD_GATE`` on one term of the G loss (``CYCLE_TERMS``), from a
+    batch of random images (seed 8) against the current Ds."""
+    from dsgan_tpu_torch.models import cycle_gan
+
+    keys, calls = CYCLE_TERMS[term]
+    rng, size = np.random.default_rng(8), CYCLE["size"]
+    A0, B0 = (cycle_gan.images(torch.from_numpy(
+        rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8)).cuda(), None)
+        for _ in range(2))
+    return gradient_check(
+        torch, bc, {"G_A": state.netG_A, "G_B": state.netG_B}, (state.netD_A, state.netD_B),
+        lambda f32: sum(cycle_gan.generator_loss(cfg, state, A0, B0)[0][k] for k in keys),
+        calls=calls, gate_limits=CYCLE_GRAD_GATE, label=f"cyclegan_{term}_b{batch}",
+        enforce=enforce)
+
+
+def cyclegan_phase(torch, np, bc, card):
+    """The CycleGAN step (``models/cycle_gan.py``) on the K1-K4 path: the
+    G_A / G_B gradient check on the state as built (``cyclegan_gradients``,
+    with its faulty controls), timed eager steps at batch 1 and 16 with
+    their launches and peak memory, a profiled step, 4 CUDA-graph replays
+    against 4 eager steps once both pools are full, then the train, eval
+    (random Inception features: FID / KID rows) and video CLIs in-process
+    on synthetic unaligned data. Every eager or captured step launches
+    30 K1 + 24 K3 + 30 K2 + 24 K4; every eval image 4 generator forwards of
+    5 K1 + 4 K3; every video batch one."""
+    from dsgan_tpu_torch.models import cycle_gan
+
+    dev, size, lr = torch.device("cuda"), CYCLE["size"], 2e-4
+    zero = {"K1": 0, "K3": 0, "K2": 0, "K4": 0}
+
+    state, step, cfg = cyclegan_build(torch)
+    n_params = sum(p.numel() for p in state.netG_A.parameters())
+    if n_params != 22425232:
+        fail(f"cyclegan: G_A has {n_params} parameters, not the full-width 22,425,232")
+    res = dict(card=card, g_parameters=n_params, timed={})
+    res["gradients"] = cyclegan_gradients(torch, np, bc, state, cfg, CYCLE["grad_batch"])
+    torch.cuda.empty_cache()
+    launches = dict(zero)
+    rng = np.random.default_rng(8)
+
+    def batch_of(b):
+        return [torch.from_numpy(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8))
+                .to(dev) for _ in range(2)]
+
+    def timed(b):
+        data = [batch_of(b) for _ in range(2)]
+        before = {k: p.detach().clone() for k, p in state.netG_A.named_parameters()}
+        torch.cuda.synchronize()
+        zero_counts(bc)
+        torch.cuda.reset_peak_memory_stats()
+        metrics = [step(state, *data[i % 2], lr)[0] for i in range(CYCLE["warmup"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics += [step(state, *data[i % 2], lr)[0] for i in range(CYCLE["steps"])]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / CYCLE["steps"]
+        n = CYCLE["warmup"] + CYCLE["steps"]
+        got = _expect(bc, CYCLE_PER_STEP, n, f"cyclegan step, batch {b}")
+        finite = all(bool(torch.isfinite(v)) for m in metrics for v in m.values())
+        moved = sum(not torch.equal(before[k], p.detach())
+                    for k, p in state.netG_A.named_parameters())
+        if not finite or moved != len(before):
+            fail(f"cyclegan step, batch {b}: finite {finite}, {moved} of {len(before)} moved")
+        r = dict(batch=b, step_ms=dt * 1e3, img_per_s=b / dt,
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30, steps_counted=n,
+                 launches=got, losses={k: float(v) for k, v in metrics[-1].items()},
+                 pools=[state.pool_A.count, state.pool_B.count])
+        r["profile"] = profile_run(torch, lambda: step(state, *data[0], lr), f"cyclegan_b{b}",
+                                   batch=b)
+        for k in launches:
+            launches[k] += got[k]
+        return r
+
+    for b in CYCLE["batches"]:
+        try:
+            r = timed(b)
+        except torch.cuda.OutOfMemoryError as e:
+            res[f"b{b}_refused"] = str(e).splitlines()[0][:200]
+            torch.cuda.empty_cache()
+            r = timed(b // 2)
+        res["timed"][f"b{r['batch']}"] = r
+        print(json.dumps({f"cyclegan_b{r['batch']}": r}))
+
+    del state, step
+    torch.cuda.empty_cache()
+
+    graph, glaunch, run = replay_vs_eager(
+        torch, np, bc, lambda: cyclegan_build(torch), 1, size, CYCLE["fill"], CYCLE["replays"],
+        CYCLE_PER_STEP, "cyclegan graph", chain=cycle_gan.chained_cyclegan_step)
+    res["graph"] = dict(graph, card=card)
+    print(json.dumps({"cyclegan_graph_vs_eager": res["graph"]}))
+    for k in launches:
+        launches[k] += glaunch[k]
+    del run
+    torch.cuda.empty_cache()
+
+    cli, cli_launches = cyclegan_clis(torch, np, bc, card, rng)
+    res.update(cli)
+    res["launches"] = {k: launches[k] + cli_launches[k] for k in launches}
+    return res, res["launches"]
+
+
+def cyclegan_clis(torch, np, bc, card, rng):
+    """The train, eval and video CLIs of the CycleGAN phase, in-process,
+    on synthetic unaligned PNGs and frames from ``rng``."""
+    from dsgan_tpu_torch import test as eval_cli
+    from dsgan_tpu_torch import train as train_cli
+    from dsgan_tpu_torch import video as video_cli
+
+    size = CYCLE["size"]
+    res, launches = {}, {"K1": 0, "K3": 0, "K2": 0, "K4": 0}
+    with tempfile.TemporaryDirectory(prefix="dsgan_cyclegan_") as tmp:
+        data, ckpt, results = (os.path.join(tmp, d) for d in ("data", "checkpoints", "results"))
+        t0 = time.perf_counter()
+        for phase, counts in (("train", (CYCLE["train_A"], CYCLE["train_B"])),
+                              ("test", (CYCLE["test"], CYCLE["test"]))):
+            for side, n in zip("AB", counts):
+                _write_pngs(np, os.path.join(data, phase + side), n, size, rng, side.lower())
+        _write_frames(np, os.path.join(tmp, "frames"), CYCLE["frames"], size)
+        write_s = time.perf_counter() - t0
+        common = ["--dataroot", data, "--checkpoints_dir", ckpt, "--name", "cyc",
+                  "--model", "cycle_gan", "--dataset_mode", "unaligned"]
+        per_epoch = max(CYCLE["train_A"], CYCLE["train_B"]) // CYCLE["cli_batch"]
+
+        zero_counts(bc)
+        t0 = time.perf_counter()
+        model, rows = train_cli.main(common + [
+            "--phase", "train", "--batchSize", str(CYCLE["cli_batch"]), "--print_freq", "4",
+            "--steps_per_dispatch", str(CYCLE["k"]), "--niter", "1", "--niter_decay", "1"])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = dict(model._chained.counts)
+        # a capture runs nothing: the replay after it runs its step
+        if (len(rows) != 2 * per_epoch or counts["captured"] != 1
+                or counts["eager"] + counts["replayed"] != 2 * per_epoch):
+            fail(f"cyclegan train CLI: {len(rows)} steps, counts {counts}: want "
+                 f"{2 * per_epoch} steps with one capture once both pools were full")
+        got = _expect(bc, CYCLE_PER_STEP, counts["eager"] + counts["captured"],
+                      "cyclegan train CLI")
+        for k in launches:
+            launches[k] += got[k]
+        losses = _finite_log(os.path.join(ckpt, "cyc", "result.csv"))
+        if not losses or not all(math.isfinite(v) for v in losses):
+            fail(f"cyclegan train CLI: losses {losses[:20]}")
+        missing = [f for f in ("epoch_1", "epoch_2", "result.csv", "each_epoch.csv",
+                               f"train_img/train_Re2_{per_epoch}.png")
+                   if not os.path.exists(os.path.join(ckpt, "cyc", f))]
+        if missing:
+            fail(f"cyclegan train CLI did not write {missing}")
+        # host ms of each step (the loader's wait, its share of its chunk, the
+        # print work): the Python loader, every step of epoch 2 after the capture
+        # a replay
+        res["cli_train"] = dict(steps=len(rows), batch=CYCLE["cli_batch"], counts=counts,
+                                step_ms=[round(sum(r[2:]) * 1e3, 3) for r in rows],
+                                launches=got, seconds=train_s, dataset_write_s=write_s,
+                                card=card)
+        print(json.dumps({"cyclegan_cli_train": res["cli_train"]}))
+
+        zero_counts(bc)
+        ev_model, ev_rows = eval_cli.main(common + [
+            "--phase", "test", "--which_epoch", "2", "--how_many", str(CYCLE["test"]),
+            "--results_dir", results, "--inception_weights", "random"])
+        torch.cuda.synchronize()
+        got = _expect(bc, {"K1": 20, "K3": 16, "K2": 0, "K4": 0}, len(ev_rows),
+                      "cyclegan eval CLI (4 generator forwards an image)")
+        for k in launches:
+            launches[k] += got[k]
+        with open(os.path.join(results, "cyc", "test_2", "metrics.csv")) as f:
+            table = {r[0]: r for r in csv.reader(f)}
+        if len(ev_rows) != CYCLE["test"] or not all(
+                k in table and math.isfinite(float(table[k][2])) for k in ("mean", "fid", "kid")):
+            fail(f"cyclegan eval CLI: {len(ev_rows)} rows, table {list(table)}")
+        res["cli_eval"] = dict(images=len(ev_rows), ms=[r["ms"] for r in ev_rows],
+                               mean=table["mean"][2:], fid=float(table["fid"][2]),
+                               kid=float(table["kid"][2]), launches=got, card=card)
+        print(json.dumps({"cyclegan_cli_eval": res["cli_eval"]}))
+
+        zero_counts(bc)
+        t0 = time.perf_counter()
+        tc = video_cli.main(["--dataroot", os.path.join(tmp, "frames"), "--name", "cyc",
+                             "--checkpoints_dir", ckpt, "--which_epoch", "2", "--results_dir",
+                             results, "--batchSize", "4"])
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t0
+        got = _expect(bc, {"K1": 5, "K3": 4, "K2": 0, "K4": 0},
+                      -(-CYCLE["frames"] // 4), "video CLI (one forward a batch of 4 frames)")
+        for k in launches:
+            launches[k] += got[k]
+        csv_path = os.path.join(results, "cyc", "video", "temporal.csv")
+        with open(csv_path) as f:
+            table = {r[0]: r[1:] for r in csv.reader(f) if r}
+        if not math.isfinite(tc) or len(table) != CYCLE["frames"] + 3:
+            fail(f"video CLI: TC {tc}, temporal.csv rows {list(table)}")
+        res["cli_video"] = dict(frames=CYCLE["frames"], tc=tc, seconds=video_s,
+                                flow_warped_err_out=float(table["flow_warped_err_out"][0]),
+                                launches=got, card=card)
+        print(json.dumps({"cyclegan_cli_video": res["cli_video"]}))
+    return res, launches
+
+
+def fid_phase(torch, np, card):
+    """Pool3 features of FID["batch"] 256x256 images through the FID
+    graph at random weights, resized to 299 on the device: the card (f32,
+    TF32 off, as the extractor runs) against the plain CPU forward of the
+    same weights, within FID["max_abs"] * max|CPU| and rel-L2
+    FID["rel_l2"]; ms a batch; and the distance TF32 would put between
+    them, with its ms."""
+    from dsgan_tpu_torch.models import inception
+
+    net = inception.define_inception("random", device="cuda", seed=0)
+    cpu = inception.define_inception({k: v.cpu() for k, v in net.state_dict().items()},
+                                     device="cpu")
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        -1, 1, (FID["batch"], 3, FID["size"], FID["size"])).astype(np.float32))
+    xc = x.cuda()
+
+    def card_run():
+        return net(inception.prepare_images(xc))
+
+    with torch.inference_mode():
+        want = cpu(inception.prepare_images(x))
+        with inception.full_f32():
+            got = card_run().cpu()
+            ms = time_ms(torch, card_run, 5)
+        saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = card_run().cpu()
+            ms_tf32 = time_ms(torch, card_run, 5)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    scale = float(want.abs().max())
+    res = dict(batch=FID["batch"], size=FID["size"], precision="f32, TF32 off",
+               max_abs_err=float((got - want).abs().max()), ref_max_abs=scale,
+               rel_l2=rel_l2(got, want), ms=ms, img_per_s=FID["batch"] / ms * 1e3,
+               tf32=dict(max_abs_err=float((tf32 - want).abs().max()),
+                         rel_l2=rel_l2(tf32, want), ms=ms_tf32),
+               gate=dict(max_abs=FID["max_abs"], rel_l2=FID["rel_l2"]), card=card)
+    print(json.dumps({"fid_features": res}))
+    if (tuple(got.shape) != (FID["batch"], 2048) or not bool(torch.isfinite(got).all())
+            or res["max_abs_err"] > FID["max_abs"] * scale or res["rel_l2"] > FID["rel_l2"]):
+        fail(f"FID features on the card disagree with the CPU's: {res}")
+    return res
+
+
 def _plain_kernels(bc):
     """Patches that put the plain versions in the kernels' place (for the
     comparison only: the port has no such switch)."""
@@ -698,42 +1041,45 @@ def faulty(torch, kernel, kind, size):
     return call
 
 
-def gradient_check(torch, bc, pix2pix, cfg, state, real_A, real_B):
+def gradient_check(torch, bc, generators, others, loss_fn, calls, gate_limits=None,
+                   label="train", enforce=True):
     """From the train state as it stands, with cuDNN held to deterministic
-    algorithms: the G gradient of the step's loss through K1-K4 and through
-    the plain versions.
+    algorithms: the gradient of a step's G loss (``loss_fn(f32)``, a 0-d
+    tensor) with respect to the block weights of ``generators`` (name ->
+    MixConvNeXtML) through K1-K4 and through the plain versions.
 
-    Block level: every K2/K4 call of the kernel path is repeated by its
-    plain version on the same inputs and cotangent, and every output (dn,
-    dx, the weight gradients, the S sums) and the folded dh must agree
-    within rel-L2 GRAD_GATE["block"]. Whole generator: each block weight's
-    gradient, kernel path vs plain path, each path with its own bf16
-    forward and backward; the dwconv biases are left out (their gradient is
-    zero in exact arithmetic: the InstanceNorm right after the depthwise
-    conv removes any per-channel constant, so what is left is rounding).
-    The median rel-L2 over the rest must be within GRAD_GATE["median"], and
-    against the same gradient in f32 the kernel path's median rel-L2 may be
-    at most GRAD_GATE["ratio"] times the plain path's. The controls put
-    faults of a known size into K2/K4's outputs and go through the same
-    gate, block level and whole generator, which must refuse those in
-    MUST_FAIL."""
+    Block level: every K2/K4 call of the kernel path (``calls`` of them) is
+    repeated by its plain version on the same inputs and cotangent, and
+    every output (dn, dx, the weight gradients, the S sums) and the folded
+    dh must agree within rel-L2 ``gate_limits["block"]``. Whole generators:
+    each block weight's gradient, kernel path vs plain path, each path with
+    its own bf16 forward and backward; the dwconv biases are left out
+    (their gradient is zero in exact arithmetic: the InstanceNorm right
+    after the depthwise conv removes any per-channel constant, so what is
+    left is rounding). The median rel-L2 over the rest must be within
+    ``gate_limits["median"]``, and against the same gradient in f32 (every
+    net of ``generators`` and ``others`` computing in f32, ``loss_fn(True)``)
+    the kernel path's median rel-L2 may be at most ``gate_limits["ratio"]``
+    times the plain path's. The controls put faults of a known size into
+    K2/K4's outputs and go through the same gate, block level and whole
+    generators, which must refuse those in MUST_FAIL. ``enforce=False``
+    returns the readings without failing on them."""
     from unittest import mock
 
-    G = state.netG
-    with torch.no_grad():
-        A = pix2pix.images(real_A, cfg.compute_dtype)
-        B = pix2pix.images(real_B, cfg.compute_dtype)
-        feats = state.vgg(B)
-    blocks = {k: p for k, p in G.named_parameters()
-              if k.split(".")[0] in {f"c{i}" for i in range(1, 6)} | {f"uc{i}" for i in range(1, 5)}
-              and not k.endswith("dwconv.bias")}
+    gate_limits = gate_limits or GRAD_GATE
+    sites = {f"c{i}" for i in range(1, 6)} | {f"uc{i}" for i in range(1, 5)}
+    blocks = {f"{name}.{k}": p for name, G in generators.items() for k, p in G.named_parameters()
+              if k.split(".")[0] in sites and not k.endswith("dwconv.bias")}
+    nets = list(generators.values()) + list(others)
 
-    def grads():
-        G.zero_grad(set_to_none=True)
-        aux = pix2pix.generator_loss(cfg, state, A, B, G(A), feats)
-        aux["loss_G"].backward()
-        state.netD.zero_grad(set_to_none=True)
-        return {k: p.grad.float().clone() for k, p in blocks.items()}
+    def grads(f32=False):
+        for net in nets:
+            net.zero_grad(set_to_none=True)
+        loss_fn(f32).backward()
+        out = {k: p.grad.float().clone() for k, p in blocks.items()}
+        for net in nets:
+            net.zero_grad(set_to_none=True)
+        return out
 
     kernel_bwd, kernel_bwd2 = bc.block_core_bwd, bc.block_core2_bwd
     k2_names = ["dn", "dx"] + "dW1 db1 dW2 db2 dWs".split() + ["S1", "S2"]
@@ -786,18 +1132,15 @@ def gradient_check(torch, bc, pix2pix, cfg, state, real_A, real_B):
             want = grads()
             # the same gradient in f32 (TF32 off, the same tanh GELU): what
             # both bf16 paths approximate
-            nets = [m for m in (G, state.netD, state.vgg)]
-            modes = [m for m in G.modules() if hasattr(m, "gelu_mode")]
+            modes = [m for G in generators.values() for m in G.modules()
+                     if hasattr(m, "gelu_mode")]
             saved = [m.compute_dtype for m in nets], [m.gelu_mode for m in modes]
             for m in nets:
                 m.compute_dtype = torch.float32
             for m in modes:
                 m.gelu_mode = "tanh"
-            A, B = A.float(), B.float()
-            with torch.no_grad():
-                feats = state.vgg(B)
             try:
-                truth = grads()
+                truth = grads(f32=True)
             finally:
                 for m, v in zip(nets, saved[0]):
                     m.compute_dtype = v
@@ -824,24 +1167,24 @@ def gradient_check(torch, bc, pix2pix, cfg, state, real_A, real_B):
                  median_vs_f32=median(rel_l2(g[k], truth[k]) for k in want),
                  finite=all(bool(torch.isfinite(v).all()) for v in g.values()))
         r["ratio_to_plain_vs_f32"] = r["median_vs_f32"] / plain_f32
-        r["passes"] = bool(r["finite"] and r["blocks"] == 9
-                           and r["block_worst_rel_l2"] <= GRAD_GATE["block"]
-                           and r["median_vs_plain"] <= GRAD_GATE["median"]
-                           and r["ratio_to_plain_vs_f32"] <= GRAD_GATE["ratio"])
+        r["passes"] = bool(r["finite"] and r["blocks"] == calls
+                           and r["block_worst_rel_l2"] <= gate_limits["block"]
+                           and r["median_vs_plain"] <= gate_limits["median"]
+                           and r["ratio_to_plain_vs_f32"] <= gate_limits["ratio"])
         return r, vs_plain
 
     out, vs_plain = gate(got, per_block)
-    out.update(gate=GRAD_GATE, plain_median_vs_f32=plain_f32,
+    out.update(gate=gate_limits, plain_median_vs_f32=plain_f32,
                whole_worst=sorted(vs_plain.items(), key=lambda kv: -kv[1])[:8],
                controls={k: gate(g, control_blocks[k])[0] for k, g in controls.items()},
                block_level=per_block)
-    print(json.dumps({"train_gradients_kernel_vs_plain": out}))
-    if not out["passes"]:
-        fail(f"the G gradients of the kernel path disagree with the plain path: "
+    print(json.dumps({f"{label}_gradients_kernel_vs_plain": out}))
+    if enforce and not out["passes"]:
+        fail(f"{label}: the G gradients of the kernel path disagree with the plain path: "
              f"{ {k: v for k, v in out.items() if k != 'block_level'} }")
     missed = [k for k in MUST_FAIL if out["controls"][k]["passes"]]
-    if missed:
-        fail(f"the gradient gate passes the faulty controls {missed}")
+    if enforce and missed:
+        fail(f"{label}: the gradient gate passes the faulty controls {missed}")
     return out
 
 
@@ -894,7 +1237,16 @@ def train_phase(torch, np, bc, card):
         fail(f"train step: finite losses {finite}, {moved} of {len(before)} parameters moved")
     res["profile"] = profile_run(torch, lambda: step(state, *batches[0], lr), "train_step",
                                  batch=b)
-    res["gradients"] = gradient_check(torch, bc, pix2pix, cfg, state, *batches[0])
+    A0, B0 = (pix2pix.images(x, cfg.compute_dtype) for x in batches[0])
+
+    def g_loss(f32):
+        A, B = (A0.float(), B0.float()) if f32 else (A0, B0)
+        with torch.no_grad():
+            feats = state.vgg(B)
+        return pix2pix.generator_loss(cfg, state, A, B, state.netG(A), feats)["loss_G"]
+
+    res["gradients"] = gradient_check(torch, bc, {"G": state.netG}, (state.netD, state.vgg),
+                                      g_loss, calls=9)
     return res, launches
 
 
@@ -946,7 +1298,8 @@ def _compare(torch, graph_keys, sa, sb, got, want):
     return differ, diffs
 
 
-def replay_vs_eager(torch, np, bc, build, batch, size, fill, k, want, label, lr=2e-4):
+def replay_vs_eager(torch, np, bc, build, batch, size, fill, k, want, label, lr=2e-4,
+                    chain=None):
     """The captured train step against the eager one, from one state:
     ``build()`` -> (state, step, config) of a recipe, built twice from one
     seed (a frozen VGG is no part of the state_dict); ``fill`` eager steps
@@ -959,23 +1312,25 @@ def replay_vs_eager(torch, np, bc, build, batch, size, fill, k, want, label, lr=
     ``torch.backends.cudnn.deterministic`` on. Either way the captured
     step must equal the eager one bit for bit, or else stay within the JAX
     suite's bounds with the differing tensors named. ``want``: the launch
-    counts of the capture (one step's). Returns the result, the launches,
-    and what the timed turns need."""
+    counts of the capture (one step's); ``chain(step, cfg, warmup=...)``:
+    the recipe's ``ChainedStep`` (default: pix2pix's). Returns the result,
+    the launches, and what the timed turns need."""
     import copy
 
     from dsgan_tpu_torch.models.pix2pix import chained_train_step
 
+    chain = chain or chained_train_step
     dev = torch.device("cuda")
     a_state, step, cfg = build()
     rng = np.random.default_rng(7)
     batches = [[torch.from_numpy(rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8))
                 .to(dev) for _ in range(2)] for _ in range(fill + k)]
-    eager = chained_train_step(step, cfg)
+    eager = chain(step, cfg)
     for x in batches[:fill]:
         eager.step(a_state, x, lr)
-    if not a_state.pool.full or eager.graph is not None:
-        fail(f"{label}: pool {a_state.pool.count} after {fill} steps, or a graph captured "
-             "before it was full")
+    if not eager.ready(a_state) or eager.graph is not None:
+        fail(f"{label}: pools not full after {fill} steps, or a graph captured before they "
+             "were")
     start = copy.deepcopy(a_state.state_dict())
     b_state = build()[0]
     compared = batches[fill:]
@@ -1001,7 +1356,7 @@ def replay_vs_eager(torch, np, bc, build, batch, size, fill, k, want, label, lr=
         a_state.load_state_dict(copy.deepcopy(start))
         b_state.load_state_dict(copy.deepcopy(start))
         want_m = run(eager, a_state, eager=True)
-        graph = chained_train_step(step, cfg, warmup=0)
+        graph = chain(step, cfg, warmup=0)
         zero_counts(bc)
         t0 = time.perf_counter()
         got = run(graph, b_state)
@@ -1315,6 +1670,9 @@ def cli_phase(torch, np, bc, card):
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card check of dsgan_tpu_torch")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json")
+    ap.add_argument("--grad_terms", type=int, nargs="+", metavar="BATCH",
+                    help="only read the CycleGAN gradient check for each term of the G loss "
+                         "alone (CYCLE_TERMS) at each batch, on the state as built, and exit")
     args = ap.parse_args(argv)
 
     import torch
@@ -1355,6 +1713,16 @@ def main(argv=None):
                       "libraries": [p.name for p in libs],
                       "native_decoder": [runtime.build().name, sorted(runtime.formats())]}))
 
+    if args.grad_terms:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        state, _, cfg = cyclegan_build(torch)
+        for b in args.grad_terms:
+            for term in CYCLE_TERMS:
+                cyclegan_gradients(torch, np, bc, state, cfg, b, term, enforce=False)
+                torch.cuda.empty_cache()
+        return 0
+
     rows = check_kernels(torch, bc, instance_stats, 1, torch.bfloat16, "tanh", TOL_BF16, 20)
     rows += check_kernels(torch, bc, instance_stats, 16, torch.bfloat16, "tanh", TOL_BF16, 10)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1372,6 +1740,8 @@ def main(argv=None):
     graphed, graph_launches = graph_phase(torch, np, bc, card)
     cli, cli_launches = cli_phase(torch, np, bc, card)
     zoo = zoo_phase(torch, np, bc, card)
+    cyclegan, cycle_launches = cyclegan_phase(torch, np, bc, card)
+    fid = fid_phase(torch, np, card)
     capture_must_fail(torch)
 
     kernels = []
@@ -1387,7 +1757,7 @@ def main(argv=None):
             name=f"{name} {src_fn}", route="cuda", source=f"dsgan_tpu_torch/csrc/{src}",
             replaces=f"dsgan_tpu/pallas/block_core.py:{line}",
             launches=(serve_launches[name] + export_launches[name] + train_launches[name]
-                      + graph_launches[name] + cli_launches[name]),
+                      + graph_launches[name] + cli_launches[name] + cycle_launches[name]),
             max_abs_err=max(r["max_abs_err"] for r in bf16),
             ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
             bound_ms=sum(r["bound_ms"] for r in main),
@@ -1398,7 +1768,8 @@ def main(argv=None):
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
                            generator_agreement=agree, export=exported, training=training,
-                           graph=graphed, cli=cli, zoo=zoo, kernels=kernels,
+                           graph=graphed, cli=cli, zoo=zoo, cyclegan=cyclegan, fid=fid,
+                           kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

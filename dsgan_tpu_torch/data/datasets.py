@@ -1,6 +1,7 @@
-"""Datasets: aligned (paired TIR <-> RGB) and single (inference only), on
-the host, index based (port of ``dsgan_tpu/data/datasets.py``); batching
-and prefetch live in ``loader.py``.
+"""Datasets: aligned (paired TIR <-> RGB), unaligned (CycleGAN's two
+domains) and single (inference only), on the host, index based (port of
+``dsgan_tpu/data/datasets.py``); batching and prefetch live in
+``loader.py``.
 
 AlignedDataset follows reference DSGAN/data/aligned_dataset.py:27-90:
 the directory is dataroot/phase, pairs come from the half-split, then a
@@ -127,6 +128,55 @@ class AlignedDataset:
         if ok_a + ok_b != 2 * n:
             return None
         return {"A": a, "B": b, "A_paths": a_paths, "B_paths": b_paths}
+
+
+class UnalignedDataset:
+    """Reference unaligned_dataset.py: the two domains from their own
+    directories, ``dataroot/phase + 'A'`` and ``+ 'B'``, each item's B drawn
+    at random (``--serial_batches``: in step with A). One draw order, the
+    JAX package's: the B index first, then A's crop and flip, then B's, all
+    from the item's generator, so the batches equal the JAX loader's bit for
+    bit for the same ``--seed``. ``--which_direction`` does not swap the
+    directories; it says which side a one-channel recipe projects to luma.
+    The native decoder takes no unaligned batch: the loader runs the Python
+    path."""
+
+    def initialize(self, opt, rng=None):
+        self.opt = opt
+        self.dir_A = os.path.join(opt.dataroot, opt.phase + "A")
+        self.dir_B = os.path.join(opt.dataroot, opt.phase + "B")
+        self.A_paths = list_images(self.dir_A)
+        self.B_paths = list_images(self.dir_B)
+        self.A_size, self.B_size = len(self.A_paths), len(self.B_paths)
+        self.rng = rng or np.random.default_rng(opt.seed)
+        self._seed = opt.seed
+        # uint8 on the host where no side needs the f32 luma mix
+        self.transform = T.get_transform(opt, self.rng,
+                                         uint8=opt.input_nc == 3 and opt.output_nc == 3)
+
+    def __getitem__(self, index, serial=None):
+        rng = _item_rng(self._seed, serial) if serial is not None else self.rng
+        A_path = self.A_paths[index % self.A_size]
+        if self.opt.serial_batches:
+            index_B = index % self.B_size
+        else:
+            index_B = int(rng.integers(0, self.B_size))
+        B_path = self.B_paths[index_B]
+        A = self.transform(_open_rgb(A_path), rng=rng)
+        B = self.transform(_open_rgb(B_path), rng=rng)
+        input_nc, output_nc = _sides(self.opt)
+        if input_nc == 1:
+            A = T.rgb_to_gray(A)
+        if output_nc == 1:
+            B = T.rgb_to_gray(B)
+        return {"A": np.ascontiguousarray(A), "B": np.ascontiguousarray(B),
+                "A_paths": A_path, "B_paths": B_path}
+
+    def __len__(self):
+        return max(self.A_size, self.B_size)
+
+    def name(self):
+        return "UnalignedDataset"
 
 
 class SingleDataset:

@@ -9,7 +9,8 @@ step. With ``--native_loader auto`` (the default) a dataset that has
 (``dsgan_tpu_torch/runtime.py``), outside the interpreter lock; where it
 returns None the loader says so in one line and falls back for good to
 the Python path, which decodes each item on a thread pool and stacks
-them. ``native`` records which path is running. Both paths give the same
+them; a dataset without ``native_batch`` (unaligned, single) says so in
+one line and takes the Python path. ``native`` records which path is running. Both paths give the same
 batches bit for bit for the same ``--seed``. The threads touch numpy, PIL
 and the native decoder only; the copy to the card is the model's, on the
 main thread (``BaseModel._place_batch``).
@@ -30,15 +31,14 @@ import numpy as np
 
 def CreateDataset(opt, rng=None):
     """Dispatch on --dataset_mode (reference data/__init__.py:12-28)."""
-    from dsgan_tpu_torch.data.datasets import AlignedDataset, SingleDataset
+    from dsgan_tpu_torch.data.datasets import AlignedDataset, SingleDataset, UnalignedDataset
 
     if opt.dataset_mode == "aligned":
         dataset = AlignedDataset()
+    elif opt.dataset_mode == "unaligned":
+        dataset = UnalignedDataset()
     elif opt.dataset_mode == "single":
         dataset = SingleDataset()
-    elif opt.dataset_mode == "unaligned":
-        raise NotImplementedError("the unaligned dataset is not ported yet: it comes with "
-                                  "CycleGAN, ROADMAP.md queue A item 15")
     else:
         raise ValueError(f"Dataset [{opt.dataset_mode}] not recognized.")
     dataset.initialize(opt, rng)
@@ -68,6 +68,9 @@ class CustomDatasetDataLoader:
         # which path makes the batches: the native decoder until it returns
         # None, then the Python path for good
         self.native = opt.native_loader != "off" and hasattr(self.dataset, "native_batch")
+        if opt.native_loader != "off" and not self.native:
+            print(f"--native_loader {opt.native_loader}: the native decoder has no "
+                  f"{self.dataset.name()} path; the Python loader runs")
         self.epoch_start = None
         self._resume = None
 

@@ -1,6 +1,7 @@
 """Models of the port: the MixConvNeXtML generator, the PatchGAN
-discriminator, the VGG16 perceptual features, the pix2pix train step and
-the model shells the CLIs create by name (``pix2pix``, ``test``)."""
+discriminator, the VGG16 perceptual features, the Inception-v3 pool3
+features, the pix2pix and CycleGAN train steps and the model shells the
+CLIs create by name (``pix2pix``, ``cycle_gan``, ``test``)."""
 
 from dsgan_tpu_torch.models.registry import (
     create_model,

@@ -216,7 +216,7 @@ def find_model_using_name(model_name):
         modellib = importlib.import_module(modname)
     except ModuleNotFoundError as e:
         raise NotImplementedError(f"model [{model_name}] is not ported: the port has "
-                                  "pix2pix and test") from e
+                                  "pix2pix, cycle_gan and test") from e
     target = model_name.replace("_", "") + "model"
     for name in dir(modellib):
         cls = getattr(modellib, name)

@@ -1,5 +1,6 @@
 """Plain tensor ops of the port (the JAX package's ``dsgan_tpu.ops`` subset
-that the serving path and the pix2pix train step run)."""
+that the serving path and the train steps run; ``fid``, ``flow``, ``resize``
+and the 5-D SSIM forms are imported by module)."""
 
 from dsgan_tpu_torch.ops.conv import (
     adaptive_avg_pool,

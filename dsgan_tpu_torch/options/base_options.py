@@ -23,10 +23,6 @@ _UNSUPPORTED = (
     ("num_hosts", lambda v: v > 1, "multi-host runs are ROADMAP.md queue A item 13"),
     ("remat", bool, "rematerialization is not needed: the default recipe's batch 16 at "
                     "256x256 takes under 9 GiB of the H100's 80 GB"),
-    ("model", lambda v: v == "cycle_gan", "CycleGAN is ROADMAP.md queue A item 15"),
-    ("dataset_mode", lambda v: v == "unaligned",
-     "the unaligned dataset comes with CycleGAN, ROADMAP.md queue A item 15"),
-    ("inception_weights", bool, "FID/KID is ROADMAP.md queue A item 16"),
 )
 
 
@@ -72,9 +68,9 @@ class BaseOptions:
         parser.add_argument("--name", type=str, default="experiment_name",
                             help="experiment tag; checkpoints and samples are filed under it")
         parser.add_argument("--dataset_mode", type=str, default="aligned",
-                            help="pairing scheme: aligned | single")
+                            help="pairing scheme: aligned | unaligned | single")
         parser.add_argument("--model", type=str, default="pix2pix",
-                            help="training algorithm: pix2pix | test")
+                            help="training algorithm: pix2pix | cycle_gan | test")
         parser.add_argument("--which_direction", type=str, default="AtoB",
                             help="translation direction, AtoB or BtoA")
         parser.add_argument("--nThreads", default=4, type=int, help="decode worker threads")

@@ -23,6 +23,7 @@ class TestOptions(BaseOptions):
         parser.add_argument("--how_many", type=int, default=1000,
                             help="number of images to run through the generator")
         parser.add_argument("--inception_weights", type=str, default="",
-                            help="converted Inception .npz for FID/KID (not ported)")
+                            help="converted Inception .npz (torchvision Inception3 keys) for the "
+                                 "FID/KID rows; 'random' = random features, pipeline test only")
         self.isTrain = False
         return parser

@@ -1,13 +1,18 @@
 """The eval CLI (port of ``dsgan_tpu/test.py``): the generator alone over
 the test set, per-image and mean SSIM / PSNR / MS-SSIM under the
-reference protocol, an HTML gallery and ``metrics.csv``.
+reference protocol, an HTML gallery and ``metrics.csv``; with
+``--inception_weights`` (a torchvision Inception3 npz, or ``random``) also
+FID / KID of the fakes against the targets, as ``fid`` / ``kid`` rows and
+on the summary line.
 
     python -m dsgan_tpu_torch.test --dataroot /path --which_epoch N [flags]
 
 The generator is the serving build (its parameters stored in the compute
 dtype, cast once on load) with its weights from the train checkpoint
-``--which_epoch`` or from a JAX-layout params ``.npz`` (``--load_npz``).
-MS-SSIM runs on the model's device. Runs on the CUDA card; ``--platform
+``--which_epoch`` or from a JAX-layout params ``.npz`` (``--load_npz``);
+``--model cycle_gan`` loads G_A and G_B and scores fake_B = G_A(real_A)
+against real_B. MS-SSIM and the Inception features run on the model's
+device. Runs on the CUDA card; ``--platform
 cpu`` runs the plain PyTorch path on the CPU.
 """
 
@@ -55,13 +60,21 @@ def main(argv=None, dataset_path=None, out_path=None):
         web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, Epoch = {opt.which_epoch}")
 
     rows = []
+    acc_fake = acc_real = None
+    if opt.inception_weights:
+        from dsgan_tpu_torch.models.inception import make_feature_accumulators
+
+        new_acc = make_feature_accumulators(opt.inception_weights, device=model.device)
+        acc_fake, acc_real = new_acc(), new_acc()
     for i, data in enumerate(dataset):
         if i >= opt.how_many:
             break
         t0 = time.perf_counter()
         model.set_input(data)
         model.test()
-        visuals = model.get_current_visuals()
+        # the JAX CLI's three images, whatever else the model shows
+        visuals = {k: v for k, v in model.get_current_visuals().items()
+                   if k in ("real_A", "fake_B", "real_B")}
         row = {"path": data["A_paths"][0], "index": i}
         if "real_B" in visuals:
             real, fake = visuals["real_B"], visuals["fake_B"]
@@ -70,10 +83,25 @@ def main(argv=None, dataset_path=None, out_path=None):
             if min(real.shape[:2]) > 160:  # MS-SSIM needs > (win - 1) * 16 pixels
                 row["ms_ssim"] = float(ops.ms_ssim(_nchw(real, model.device),
                                                    _nchw(fake, model.device), data_range=255))
+            if acc_fake is not None:
+                acc_fake.add(fake)
+                acc_real.add(real)
         save_images(webpage, visuals, data["A_paths"], aspect_ratio=opt.aspect_ratio)
         row["ms"] = (time.perf_counter() - t0) * 1e3
         rows.append(row)
     webpage.save()
+
+    fid_val = kid_val = kid_std = None
+    if acc_fake is not None:
+        ff, fr = acc_fake.result(), acc_real.result()
+        if min(len(ff), len(fr)) >= 2:
+            from dsgan_tpu_torch.ops import fid as fid_ops
+
+            fid_val = fid_ops.fid_from_features(ff, fr)
+            kid_val, kid_std = fid_ops.kid_from_features(
+                ff, fr, subset_size=min(len(ff), len(fr), 100))
+        else:
+            print("skipping FID/KID: need >= 2 evaluated pairs")
 
     scored = [r for r in rows if "ssim" in r]
     ms_vals = [r["ms_ssim"] for r in rows if "ms_ssim" in r]
@@ -87,12 +115,17 @@ def main(argv=None, dataset_path=None, out_path=None):
             writer.writerow(["mean", "", np.mean([r["ssim"] for r in scored]),
                              np.mean([r["psnr"] for r in scored]),
                              np.mean(ms_vals) if ms_vals else ""])
+        if fid_val is not None:
+            writer.writerow(["fid", "", fid_val, "", ""])
+            writer.writerow(["kid", "", kid_val, kid_std, ""])
     print(f"wrote {len(rows)} results to {web_dir}")
     if scored:
         line = "mean SSIM: %.4f  mean PSNR: %.3f" % (np.mean([r["ssim"] for r in scored]),
                                                      np.mean([r["psnr"] for r in scored]))
         if ms_vals:
             line += "  mean MS-SSIM: %.4f" % float(np.mean(ms_vals))
+        if fid_val is not None:
+            line += "  FID: %.3f  KID: %.5f" % (fid_val, kid_val)
         print(line)
     return model, rows
 

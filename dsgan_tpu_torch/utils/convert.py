@@ -14,6 +14,7 @@ inverses (``state_dict_from_jax`` with a network's entries):
   gll               ``gll_entries``           <- ``pth_convert.convert_gll_generator``
   unetpp            ``unetpp_entries``        <- ``pth_convert.convert_unetpp``
   wnet              ``wnet_entries``          <- ``pth_convert.convert_wnet``
+  Inception pool3   ``inception_state_dict_from_jax`` <- ``inception.load_torchvision_npz``
 
 (the converters read instance-norm networks; ``convert_wnet`` also
 BatchNorm). ``cascaded``, ``pixel`` and ``multi`` have no converter: their
@@ -392,3 +393,53 @@ def vgg_state_dict_from_jax(params, num_convs=None):
     ``state_dict`` that ``load_torchvision_npz`` reads back from an npz;
     the first ``num_convs`` convs (default: all that ``params`` holds)."""
     return state_dict_from_jax(params, vgg_entries(num_convs or len(params)))
+
+
+def cyclegan_state_from_jax(params_G_A, params_G_B, params_D_A, params_D_B, g_entries=None,
+                            d_entries=None, stats_G_A=None, stats_G_B=None, stats_D_A=None,
+                            stats_D_B=None):
+    """A JAX ``CycleGANState``'s four networks (and their ``batch_stats``)
+    -> the port's ``state_dict``s under ``CycleGANState``'s names (``netG_A``
+    ..). ``g_entries`` / ``d_entries``: the recipes' entries tables
+    (default: MixConvNeXtML and the 3-layer PatchGAN)."""
+    d_entries = nlayer_entries(3) if d_entries is None else d_entries
+    return {"netG_A": state_dict_from_jax(params_G_A, g_entries, stats_G_A),
+            "netG_B": state_dict_from_jax(params_G_B, g_entries, stats_G_B),
+            "netD_A": state_dict_from_jax(params_D_A, d_entries, stats_D_A),
+            "netD_B": state_dict_from_jax(params_D_B, d_entries, stats_D_B)}
+
+
+# JAX InceptionPool3 BasicConv2d leaves -> torchvision suffixes
+_INCEPTION_LEAVES = {"kernel": "conv.weight", "bn_scale": "bn.weight", "bn_bias": "bn.bias",
+                     "bn_mean": "bn.running_mean", "bn_var": "bn.running_var"}
+
+
+def inception_state_dict_from_jax(params):
+    """A JAX ``InceptionPool3`` params tree (``{"Mixed_5b": {"branch1x1":
+    {"kernel", "bn_scale", ..}}}``) -> the port's torchvision-key
+    ``state_dict``; the inverse of ``dsgan_tpu/models/inception.py::
+    load_torchvision_npz`` (HWIO kernels back to OIHW)."""
+    sd = {}
+    for path, v in flatten(params).items():
+        *module, leaf = path.split("/")
+        v = np.asarray(v, np.float32)
+        if leaf == "kernel":
+            v = v.transpose(3, 2, 0, 1)
+        name = ".".join(module) + "." + _INCEPTION_LEAVES[leaf]
+        sd[name] = torch.from_numpy(np.ascontiguousarray(v))
+        if leaf == "bn_scale":
+            sd[name.replace("bn.weight", "bn.num_batches_tracked")] = torch.zeros(
+                (), dtype=torch.long)
+    return sd
+
+
+def load_inception_npz(path):
+    """A torchvision / pytorch-fid Inception3 ``state_dict`` saved as an npz
+    -> the port's ``InceptionPool3`` ``state_dict``: the classifier (``fc``)
+    and the aux tower (``AuxLogits``) dropped, every other key as it is."""
+    with np.load(path) as data:
+        sd = {k: torch.from_numpy(np.asarray(data[k])) for k in data.files
+              if k.split(".")[0] not in ("fc", "AuxLogits")}
+    for k, v in sd.items():
+        sd[k] = v.long() if k.endswith("num_batches_tracked") else v.float()
+    return sd

@@ -126,7 +126,3 @@ def test_decode_error_reaches_the_consumer(tmp_path):
     with pytest.raises(Exception, match="b_1.png|cannot identify"):
         list(loader.load_data())
 
-
-def test_unaligned_dataset_is_refused_with_its_roadmap_item(dataroot):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        CreateDataLoader(_opt(dataroot, dataset_mode="unaligned"), "train")

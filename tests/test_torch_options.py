@@ -60,8 +60,6 @@ def test_parse_writes_opt_txt_and_sets_no_process_state(tmp_path):
     (["--spatial_axis", "2"], "item 13"),
     (["--num_hosts", "2"], "item 13"),
     (["--remat"], "not needed"),
-    (["--model", "cycle_gan"], "item 15"),
-    (["--dataset_mode", "unaligned"], "item 15"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
 def test_unported_switches_raise_with_their_roadmap_item(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -96,10 +94,58 @@ def test_zoo_switches_parse(tmp_path, argv, key, value):
     assert getattr(opt, key) == value
 
 
-def test_eval_only_unported_switch_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 16"):
-        TestOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--inception_weights",
-                                  "random"])
+@pytest.mark.parametrize("argv", [
+    ["--model", "cycle_gan"],
+    ["--dataset_mode", "unaligned"],
+    ["--inception_weights", "random"],
+], ids=lambda v: "_".join(v))
+def test_items_15_and_16_parse_and_build(tmp_path, argv):
+    """ROADMAP items 15 (CycleGAN, the unaligned dataset) and 16 (FID/KID)
+    are ported: each flag parses and builds what it names on the CPU."""
+    import numpy as np
+    from PIL import Image
+
+    from dsgan_tpu_torch.data import CreateDataLoader
+    from dsgan_tpu_torch.models import create_model
+
+    base = ["--checkpoints_dir", str(tmp_path), "--platform", "cpu", "--dtype", "float32"]
+    if argv[0] == "--model":
+        opt = TrainOptions().parse(argv=base + argv + ["--which_model_netG", "resnet_6blocks",
+                                                       "--ngf", "8", "--ndf", "8"])
+        assert (opt.lambda_A, opt.lambda_B, opt.lambda_identity) == (10.0, 10.0, 0.5)
+        model = create_model(opt)
+        assert model.name() == "CycleGANModel" and model.cfg.gan_mode == "lsgan"
+        assert sorted(model._networks()) == ["D_A", "D_B", "G_A", "G_B"]
+    elif argv[0] == "--dataset_mode":
+        for side in "AB":
+            (tmp_path / f"train{side}").mkdir()
+            Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / f"train{side}" / "x.png")
+        opt = TrainOptions().parse(argv=base + argv + ["--dataroot", str(tmp_path), "--phase",
+                                                       "train"])
+        assert CreateDataLoader(opt, "train").dataset.name() == "UnalignedDataset"
+    else:
+        opt = TestOptions().parse(argv=base + argv)
+        assert opt.inception_weights == "random"
+        from dsgan_tpu_torch.models.inception import make_feature_accumulators
+
+        acc = make_feature_accumulators(opt.inception_weights, batch=2, device="cpu")()
+        acc.add(np.zeros((16, 16, 3), np.uint8))
+        assert acc.result().shape == (1, 2048)
+
+
+@pytest.mark.parametrize("kind", ["train", "test"])
+def test_cyclegan_flags_match_jax(kind):
+    from dsgan_tpu.models.cycle_gan import CycleGANModel as JaxCycleGANModel
+    from dsgan_tpu_torch.models.cycle_gan import CycleGANModel
+
+    port, jax_ = (TrainOptions(), JaxTrainOptions()) if kind == "train" else \
+        (TestOptions(), JaxTestOptions())
+    got = _actions(port, CycleGANModel, kind == "train")
+    want = _actions(jax_, JaxCycleGANModel, kind == "train")
+    assert sorted(got) == sorted(want)
+    for dest, w in want.items():
+        g = got[dest]
+        assert (g.option_strings, g.default, g.type) == (w.option_strings, w.default, w.type), dest
 
 
 def test_defaults_and_one_device_values_parse(tmp_path):
