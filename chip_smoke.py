@@ -96,8 +96,19 @@ Phases, each of which fails the run:
      tally), and one NCCL rank whose all-reduces and all-gather the CUDA
      graph captures, 4 replays against 4 eager steps bit for bit
      (``dp_two_ranks``, ``dp_nccl_graph_vs_eager`` lines);
- 14. a step that cannot be captured must raise, not run eagerly;
- 15. one JSON line of kernel numbers, then the result line.
+ 14. the spatial axis (``spatial_phase``): K1-K4 against their plain
+     versions at the strips' shapes, then two gloo ranks spawned on the one
+     card, each holding 256 of the 512 rows of tests/test_spatial_512.py's
+     config (MixConvNeXtML, PatchGAN ndf 32, pool 0, batch 1): f32 on the
+     check builds against one process (the losses at that file's bounds,
+     each weight's first-step G and D gradient within rel-L2 1e-4 or twice
+     the floor's: one process summing over the two row halves as the
+     strips do), then bf16 on the Hopper kernels without and with VGG
+     (ranks bit-identical, step ms beside one process's, the tally); 5 K1
+     + 4 K3 + 5 K2 + 4 K4 a rank a step on the strips' rows (``spatial_*``
+     lines);
+ 15. a step that cannot be captured must raise, not run eagerly;
+ 16. one JSON line of kernel numbers, then the result line.
 
 ``--out DIR`` also writes the per-shape numbers to DIR/chip_smoke.json.
 """
@@ -196,6 +207,31 @@ DP = dict(batch=16, size=256, steps=3, timed=3, noise=2.0,
 # the gradients summed over the ranks, not averaged; the TV sum not scaled by
 # the data size
 FAULTS = ("rows", "sum", "tv")
+# The spatial axis (``spatial_phase``): tests/test_spatial_512.py's config
+# (MixConvNeXtML, PatchGAN ndf 32, pool 0, w_vgg 0, batch 1, 512x512) over
+# two gloo ranks sharing the card (data 1 x spatial 2) against one process:
+# `steps` gated steps on one batch pair; the losses within that file's
+# bounds (`losses`: (rtol, atol) at each step, tests/test_spatial_512.py:
+# 89-93) of one process's, and every weight's first-step G and D gradient
+# (and each net's weights as one vector) within rel-L2 `grad` of one
+# process's, or within `noise` times the floor's reading on that weight
+# where that is larger. The floor is one process that sums the
+# InstanceNorm sums and K2/K4's sums over the image's two row halves, in
+# the order the two strips sum them (``_row_halves``): at 512² the first
+# step's gradients of many weights cancel to ~1e-3 of their terms, and that
+# order alone moves them 1e-3 from one process's. The f32 runs take the
+# FMA check builds, erf GELU, TF32 off. Then the bf16 runs on the Hopper
+# kernels, without and with VGG, `timed` more steps each, and K1-K4
+# against their plain versions at the strips' shapes.
+SPATIAL = dict(size=512, batch=1, steps=2, timed=3, grad=1e-4, noise=2.0,
+               losses=((2e-5, 1e-6), (2e-4, 1e-5)),
+               keys=("loss_G", "loss_D", "loss_G_L1", "loss_ssim", "loss_tv"))
+# planted spatial-axis faults, each in the ranks alone: the halo rows zeroed;
+# the InstanceNorm statistics of the strip alone; K2's / K4's S sums not
+# summed over the row group; the fold dividing by the strip's H * W; the
+# gradients divided by all the ranks (averaged over the row group too; with
+# one data row a sum over the data axis is its mean)
+SPATIAL_FAULTS = ("halo", "stats", "sums", "fold", "grads")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores (the f32 kernel's FMA path).
 HBM_BPS = 3.35e12
@@ -295,19 +331,27 @@ def compare_bwd(torch, names, got, want, tol):
     return worst_abs, worst_rel, ok
 
 
-def check_backward(torch, bc, instance_stats, batch, dtype, gelu, iters):
-    """Each K2 / K4 site at this batch and dtype on a random cotangent:
-    kernel vs plain version, and the InstanceNorm fold of each."""
+def _hw(side):
+    """(H, W) of a site's side: H = W = side, or a strip's (rows, W)."""
+    return tuple(side) if isinstance(side, tuple) else (side, side)
+
+
+def check_backward(torch, bc, instance_stats, batch, dtype, gelu, iters,
+                   sites=(K1_SITES, K3_SITES)):
+    """Each K2 / K4 site (``sites``: K1's and K3's) at this batch and dtype
+    on a random cotangent: kernel vs plain version, and the InstanceNorm
+    fold of each."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(4321 + batch)
     dname = str(dtype).split(".")[-1]
 
     def act(c, side):
-        t = torch.randn((batch, c, side, side), generator=gen, device="cuda")
+        t = torch.randn((batch, c, *_hw(side)), generator=gen, device="cuda")
         return t.to(dtype).contiguous(memory_format=torch.channels_last)
 
-    for kernel, sites in (("K2", K1_SITES), ("K4", K3_SITES)):
+    for kernel, sites in zip(("K2", "K4"), sites):
         for site, side, parts, p in sites:
+            hw = _hw(side)[0] * _hw(side)[1]
             c = sum(parts)
             w1, b1, w2, b2, ws = [
                 (torch.randn(s, generator=gen, device="cuda") * k).to(dtype)
@@ -341,17 +385,17 @@ def check_backward(torch, bc, instance_stats, batch, dtype, gelu, iters):
                 ms = time_ms(torch, run, iters)
                 plain_ms = time_ms(torch, plain, iters)
                 passes = pass_times(torch, run) if dtype == torch.bfloat16 else None
-            b_ms, b_by = bound_bwd(batch, side * side, c, p, dname)
+            b_ms, b_by = bound_bwd(batch, hw, c, p, dname)
             cp, h4p = packed.w1.shape
             if dtype == torch.bfloat16:
                 # the Hopper kernel: 128-row tiles, and the weight pass's row splits
                 tile = dict(rows=128, splits=[j.nsplit for j in bc.k4_plan(
-                    batch, side * side, cp, h4p, p, packed.w2.shape[1]).jobs],
+                    batch, hw, cp, h4p, p, packed.w2.shape[1]).jobs],
                             narrow=bc.narrow_route(parts[0], sum(parts[1:])))
             else:
                 tile = dict(rows=bc.bwd_rows(cp, bc._hidden_chunk(h4p), packed.w2.shape[1]))
-            row = dict(kernel=kernel, site=site, batch=batch, dtype=dname, gelu=gelu,
-                       max_abs_err=max_abs, worst_rel_l2=worst_rel, ok=ok, ms=ms,
+            row = dict(kernel=kernel, site=site, batch=batch, hw=_hw(side), dtype=dname,
+                       gelu=gelu, max_abs_err=max_abs, worst_rel_l2=worst_rel, ok=ok, ms=ms,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, tile=tile, passes=passes)
             print(json.dumps(row))
             rows.append(row)
@@ -361,18 +405,21 @@ def check_backward(torch, bc, instance_stats, batch, dtype, gelu, iters):
     return rows
 
 
-def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
-    """Each K1 / K3 site at this batch and dtype: kernel vs plain version."""
+def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters,
+                  sites=(K1_SITES, K3_SITES)):
+    """Each K1 / K3 site (``sites``: K1's and K3's) at this batch and dtype:
+    kernel vs plain version."""
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1234 + batch)
     dname = str(dtype).split(".")[-1]
 
     def act(c, side):
-        t = torch.randn((batch, c, side, side), generator=gen, device="cuda")
+        t = torch.randn((batch, c, *_hw(side)), generator=gen, device="cuda")
         return t.to(dtype).contiguous(memory_format=torch.channels_last)
 
-    for kernel, sites in (("K1", K1_SITES), ("K3", K3_SITES)):
+    for kernel, sites in zip(("K1", "K3"), sites):
         for site, side, parts, p in sites:
+            hw = _hw(side)[0] * _hw(side)[1]
             c = sum(parts)
             w = [torch.randn(s, generator=gen, device="cuda") * k
                  for s, k in (((c, 4 * c), 0.05), ((4 * c,), 1.0), ((4 * c, p), 0.05),
@@ -392,7 +439,7 @@ def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
                     plain = lambda: bc.block_core2_reference(*hs, *xs, *stats, *w, gelu)
                 got, want = run(), plain()
                 torch.cuda.synchronize()
-                if got.shape != (batch, p, side, side) or not got.is_contiguous(
+                if got.shape != (batch, p, *_hw(side)) or not got.is_contiguous(
                         memory_format=torch.channels_last):
                     fail(f"{kernel} {site}: output {tuple(got.shape)} in the wrong layout")
                 err = (got.float() - want.float()).abs()
@@ -402,12 +449,12 @@ def check_kernels(torch, bc, instance_stats, batch, dtype, gelu, tol, iters):
                 ms = time_ms(torch, run, iters)
                 plain_ms = time_ms(torch, plain, iters)
                 passes = pass_times(torch, run) if dtype == torch.bfloat16 else None
-            b_ms, b_by = bound(batch, side * side, c, p, dname)
-            row = dict(kernel=kernel, site=site, batch=batch, dtype=dname, gelu=gelu,
+            b_ms, b_by = bound(batch, hw, c, p, dname)
+            row = dict(kernel=kernel, site=site, batch=batch, hw=_hw(side), dtype=dname, gelu=gelu,
                        max_abs_err=float(err.max()), rel_l2=rel, ok=ok, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, passes=passes)
             if dtype == torch.bfloat16:
-                row["plan"] = bc.fwd_plan(batch * side * side, parts[0], sum(parts[1:]),
+                row["plan"] = bc.fwd_plan(batch * hw, parts[0], sum(parts[1:]),
                                           packed.w1.shape[1], packed.w2.shape[1])._asdict()
             print(json.dumps(row))
             rows.append(row)
@@ -2252,6 +2299,354 @@ def dp_phase(torch, np, bc, card, faults=()):
     return res, launches
 
 
+def _sp_plant(fault):
+    """Plant one of SPATIAL_FAULTS in this process's spatial-axis step."""
+    from dsgan_tpu_torch.kernels import block_core as bc
+    from dsgan_tpu_torch.models import pix2pix
+    from dsgan_tpu_torch.ops import norm
+    from dsgan_tpu_torch.parallel import mesh as mesh_mod
+    from dsgan_tpu_torch.parallel import spatial
+
+    if fault == "halo":
+        spatial._exchange = lambda rows, sends, recvs: [b.zero_() for b in recvs.values()]
+    elif fault == "stats":
+        norm.global_moments = lambda xf: (xf.mean(dim=(2, 3)), xf.square().mean(dim=(2, 3)))
+    elif fault == "sums":
+        bc._reduce_s = lambda rows, *sums: sums
+    elif fault == "fold":
+        bc._fold_hw = lambda rows, h: None
+
+    elif fault == "grads":
+        def averaged(opt, mesh):
+            mesh_mod.reduce_gradients(opt, mesh)
+            for g in opt.param_groups:
+                for prm in g["params"]:
+                    if prm.grad is not None:
+                        prm.grad.div_(mesh.spatial)
+        pix2pix.reduce_gradients = averaged
+    elif fault is not None:
+        fail(f"spatial: no planted fault {fault!r}: {SPATIAL_FAULTS}")
+
+
+def _sp_batches(np):
+    """SPATIAL["steps"] + SPATIAL["timed"] global uint8 (A, B) batch pairs
+    from a seed, B's lower quarter a flat grey; the gated steps repeat the
+    first pair, as tests/test_spatial_512.py does."""
+    rng = np.random.default_rng(15)
+    shape = (SPATIAL["batch"], SPATIAL["size"], SPATIAL["size"], 3)
+    pairs = []
+    for _ in range(1 + SPATIAL["timed"]):
+        a, b = (rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(2))
+        b[:, 3 * SPATIAL["size"] // 4:] = 128
+        pairs.append([a, b])
+    return [pairs[0]] * SPATIAL["steps"] + pairs[1:]
+
+
+def _row_halves(torch, bc):
+    """Patches that sum, in one process, the InstanceNorm sums of x and x^2
+    and K2's / K4's S sums and weight gradients over the image's two row
+    halves, as two strips sum them (each half's sum, then the two added); a
+    level of odd height, which the strips gather, stays whole. For the
+    comparison only: the port has no such switch."""
+    from unittest import mock
+
+    from dsgan_tpu_torch.ops import norm
+
+    moments, bwd, bwd2 = norm.global_moments, bc.block_core_bwd, bc.block_core2_bwd
+
+    def halves(t):
+        h = t.shape[2] // 2
+        return [t.narrow(2, i * h, h).contiguous(memory_format=torch.channels_last)
+                for i in (0, 1)]
+
+    def split_moments(xf):
+        if xf.shape[2] % 2:
+            return moments(xf)
+        s = sum(torch.stack([t.sum(dim=(2, 3)), t.square().sum(dim=(2, 3))])
+                for t in halves(xf))
+        n = xf.shape[2] * xf.shape[3]
+        return s[0] / n, s[1] / n
+
+    def split(fn, parts):
+        """``fn`` (K2 / K4, whose ``parts`` leading inputs and cotangent are
+        per pixel, as are as many leading outputs) on each half."""
+        def run(*args, packed=None):
+            if args[0].shape[2] % 2:
+                return fn(*args, packed=packed)
+            cut = {j: halves(args[j]) for j in set(range(parts)) | {2 * parts}}
+            outs = [fn(*[cut[j][i] if j in cut else a for j, a in enumerate(args)],
+                       packed=packed) for i in (0, 1)]
+            return ([torch.cat(o, 2) for o in zip(*(o[:parts] for o in outs))]
+                    + [a + b for a, b in zip(outs[0][parts:], outs[1][parts:])])
+        return run
+
+    return [mock.patch.object(norm, "global_moments", split_moments),
+            mock.patch.object(bc, "block_core_bwd", split(bwd, 2)),
+            mock.patch.object(bc, "block_core2_bwd", split(bwd2, 4))]
+
+
+def _sp_run(torch, np, bc, mesh, dtype, use_vgg=False, timed=True, halves=False):
+    """``_sp_steps``; ``halves``: one process summing over the two row
+    halves (``_row_halves``)."""
+    patches = _row_halves(torch, bc) if halves else []
+    for p in patches:
+        p.start()
+    try:
+        return _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed)
+    finally:
+        for p in patches:
+            p.stop()
+
+
+def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed):
+    """The spatial recipe's gated steps, then (``timed``) its timed steps,
+    on this rank's strip (the whole image without a mesh), from the state
+    built from seed 0, in ``dtype`` (f32: the FMA check builds, erf GELU;
+    bf16: the Hopper kernels, tanh GELU). Returns the gated steps' metrics,
+    the first step's G and D gradients, the launch counts of the gated
+    steps, the rows each ConvNeXt block's input held, the tally of a step,
+    the timed steps' ms and the peak memory."""
+    from dsgan_tpu_torch.models import define_D, define_G, define_vgg, pix2pix
+    from dsgan_tpu_torch.models.mixconvnext import ConvNeXtBlock
+    from dsgan_tpu_torch.parallel import comms, shard_batch
+
+    dev, lr, size = torch.device("cuda"), 2e-4, SPATIAL["size"]
+    cfg = pix2pix.Pix2PixConfig(pool_size=0, use_vgg=use_vgg, w_vgg=1.0 if use_vgg else 0.0,
+                                compute_dtype=None if dtype == torch.float32 else dtype)
+    G = define_G(3, 3, 32, "MixConvNeXtML", dtype=dtype, device=dev, seed=0, train=True)
+    D = define_D(6, 32, "basic", dtype=dtype, device=dev, seed=1)
+    vgg = define_vgg(4, dtype=dtype, device=dev, seed=2) if use_vgg else None
+    rows = size // (mesh.spatial if mesh is not None else 1)
+    state = pix2pix.init_state(G, D, vgg, cfg, (rows, size), seed=0)
+    step = pix2pix.make_train_step(cfg, mesh)
+    seen = {}
+
+    def record(name):
+        def hook(mod, args):
+            seen.setdefault(name, tuple(args[0].shape))
+        return hook
+
+    for name, m in G.named_modules():
+        if isinstance(m, ConvNeXtBlock):
+            m.register_forward_pre_hook(record(name))
+    batches = [[torch.from_numpy(np.ascontiguousarray(shard_batch(x, mesh) if mesh else x))
+                .to(dev) for x in ab] for ab in _sp_batches(np)]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(bc)
+    metrics, grads, tally = [], None, None
+    for a, b in batches[:SPATIAL["steps"]]:
+        if mesh is not None:
+            comms.reset(mesh)
+        m, _ = step(state, a, b, lr)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if mesh is not None:
+            tally = comms.collective_stats(mesh)
+        if grads is None:
+            grads = {n: {k: q.grad.float().cpu() for k, q in net.named_parameters()
+                         if q.grad is not None} for n, net in (("netG", G), ("netD", D))}
+    launches = read_counts(bc)
+    ms = None
+    if timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in batches[SPATIAL["steps"]:]:
+            step(state, a, b, lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / SPATIAL["timed"] * 1e3
+    params = {n: {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()}
+              for n, net in (("netG", G), ("netD", D))}
+    return dict(metrics=metrics, grads=grads, launches=launches, block_inputs=seen, tally=tally,
+                step_ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, params=params)
+
+
+SP_RUNS = (("f32", False), ("bf16", False), ("bf16", True))
+
+
+def _sp_rank(rank, out, fault=None):
+    """A spatial rank: data 1 x spatial 2, gloo, the card shared; with
+    ``fault`` the f32 run alone, that fault planted."""
+    import numpy as np
+    import torch
+
+    from dsgan_tpu_torch.kernels import block_core as bc
+    from dsgan_tpu_torch.parallel import resolve_mesh
+
+    _card_flags(torch)
+    _sp_plant(fault)
+    mesh = resolve_mesh(1, 2, batch_size=SPATIAL["batch"], height=SPATIAL["size"])
+    runs = {}
+    for name, vgg in SP_RUNS[:1] if fault else SP_RUNS:
+        dtype = torch.float32 if name == "f32" else torch.bfloat16
+        runs[f"{name}{'_vgg' if vgg else ''}"] = _sp_run(torch, np, bc, mesh, dtype, vgg,
+                                                         timed=fault is None and name != "f32")
+        torch.cuda.empty_cache()
+    torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _sp_grads(torch, run, ref):
+    """Per net: each weight's first-step gradient's rel-L2 against ``ref``'s,
+    and over all its weights."""
+    out = {}
+    for n in ("netG", "netD"):
+        keys = [k for k, v in ref["grads"][n].items() if v.dim() > 1]
+        each = {k: rel_l2(run["grads"][n][k], ref["grads"][n][k]) for k in keys}
+        every = rel_l2(torch.cat([run["grads"][n][k].reshape(-1) for k in keys]),
+                       torch.cat([ref["grads"][n][k].reshape(-1) for k in keys]))
+        out[n] = (each, every)
+    return out
+
+
+def sp_gate(torch, run, one, floor):
+    """A rank's f32 run against one process's (``one``): each gated loss's
+    difference beside its bound (SPATIAL["losses"]); each weight's
+    first-step gradient's rel-L2, and each net's over all its weights,
+    beside SPATIAL["grad"] or SPATIAL["noise"] times the halves' run's
+    (``floor``) reading where that is larger. The table holds each net's
+    weight nearest its limit, all its weights, and every reading over its
+    limit. Returns (table, the readings over their limits)."""
+    table, over = {}, []
+    for i, (g, w) in enumerate(zip(run["metrics"], one["metrics"])):
+        rtol, atol = SPATIAL["losses"][i]
+        for key in SPATIAL["keys"]:
+            d, limit = abs(g[key] - w[key]), atol + rtol * abs(w[key])
+            table[f"{key}_step{i + 1}"] = dict(got=d, limit=limit)
+            if not d <= limit:
+                over.append(f"{key}_step{i + 1}")
+    floors = _sp_grads(torch, floor, one)
+    for n, (each, every) in _sp_grads(torch, run, one).items():
+        f_each, f_every = floors[n]
+        readings = {f"grad_{n}.{k}": (v, f_each[k]) for k, v in each.items()}
+        readings[f"grad_all_{n}"] = (every, f_every)
+        table_n = {label: dict(got=v, floor=f, limit=max(SPATIAL["grad"], SPATIAL["noise"] * f))
+                   for label, (v, f) in readings.items()}
+        worst = max((k for k in table_n if k != f"grad_all_{n}"),
+                    key=lambda k: table_n[k]["got"] / table_n[k]["limit"])
+        table[f"grad_worst_{n}"] = dict(table_n[worst], tensor=worst.split(".", 1)[1])
+        table[f"grad_all_{n}"] = table_n[f"grad_all_{n}"]
+        for label, t in table_n.items():
+            if not t["got"] <= t["limit"]:
+                table[label] = t
+                over.append(label)
+    return table, over
+
+
+def _sp_spawn(torch, tmp, fault=None):
+    from dsgan_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    multihost.spawn(_sp_rank, 2, (tmp, fault), platform="gpu", backend="gloo", timeout=900)
+    return ([torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(2)],
+            time.perf_counter() - t0)
+
+
+def _sp_rows():
+    """The rows each ConvNeXt block's input holds on a strip of 2 at 512:
+    c_k at level k - 1, uc_k at level 4 - k."""
+    rows = {f"c{k}": SPATIAL["size"] // 2 ** (k - 1) // 2 for k in range(1, 6)}
+    rows.update({f"uc{k}": SPATIAL["size"] // 2 ** (4 - k) // 2 for k in range(1, 5)})
+    return rows
+
+
+def _sp_sites():
+    """K1_SITES and K3_SITES at the strips' shapes: each site's (rows, W)
+    on a strip of 2 at SPATIAL["size"] (``_sp_rows``), the shapes the
+    bf16 ranks give the Hopper kernels."""
+    rows, scale = _sp_rows(), SPATIAL["size"] // 256
+    return tuple([(site, (rows[site], side * scale), parts, p) for site, side, parts, p in sites]
+                 for sites in (K1_SITES, K3_SITES))
+
+
+def spatial_phase(torch, np, bc, card, faults=()):
+    """The spatial axis (``parallel.spatial``) on the one card: two gloo ranks
+    (data 1 x spatial 2), spawned, each holding 256 of the 512 image rows.
+    First K1-K4 (bf16, the Hopper kernels) against their plain versions at
+    the strips' shapes (``_sp_sites``). (a) f32 on the FMA check builds:
+    the ranks against one process and the halves' run at ``sp_gate``'s
+    bounds, 5 K1 + 4 K3 + 5 K2 + 4 K4 launches a rank a step, every
+    ConvNeXt block on its strip's rows. (b) bf16 on the Hopper kernels,
+    without and with VGG: the ranks bit-identical, the launches, a rank's
+    step ms beside one process's, the tally of a step. With ``faults``
+    (``--spatial_faults``): (a) clean, then with each of SPATIAL_FAULTS
+    planted in the ranks, which the gate must fail."""
+    from dsgan_tpu_torch.ops import instance_stats
+
+    per = {"K1": 5, "K3": 4, "K2": 5, "K4": 4}
+    kernel_rows = (check_kernels(torch, bc, instance_stats, SPATIAL["batch"], torch.bfloat16,
+                                 "tanh", TOL_BF16, 3, sites=_sp_sites())
+                   + check_backward(torch, bc, instance_stats, SPATIAL["batch"], torch.bfloat16,
+                                    "tanh", 3, sites=_sp_sites()))
+    one = {}
+    for name, vgg in SP_RUNS[:1] if faults else SP_RUNS:
+        torch.cuda.empty_cache()
+        key = f"{name}{'_vgg' if vgg else ''}"
+        dtype = torch.float32 if name == "f32" else torch.bfloat16
+        one[key] = _sp_run(torch, np, bc, None, dtype, vgg, timed=name != "f32")
+    torch.cuda.empty_cache()
+    split = _sp_run(torch, np, bc, None, torch.float32, timed=False, halves=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dsgan_sp_") as tmp:
+        ranks, spawn_s = _sp_spawn(torch, tmp)
+        planted = {}
+        for fault in faults:
+            runs, _ = _sp_spawn(torch, tmp, fault)
+            table, over = sp_gate(torch, runs[0]["f32"], one["f32"], split)
+            planted[fault] = dict(over=len(over), first={k: table[k]["got"] for k in over[:6]})
+    gate, over = sp_gate(torch, ranks[0]["f32"], one["f32"], split)
+    # ungated: the worst weight and all weights, the ranks' against one
+    # process and against the halves' run, the halves' against one process
+    distances = {f"{a}_vs_{b}_{n}": (max(each, key=each.get), max(each.values()), every)
+                 for a, run, b, ref in (("ranks", ranks[0]["f32"], "one", one["f32"]),
+                                        ("ranks", ranks[0]["f32"], "halves", split),
+                                        ("halves", split, "one", one["f32"]))
+                 for n, (each, every) in _sp_grads(torch, run, ref).items()}
+    res = dict(card=card, size=SPATIAL["size"], batch=SPATIAL["batch"], mesh=[1, 2],
+               f32_gate=gate, over=over, spawn_s=spawn_s, runs={}, distances=distances,
+               kernel_rows=kernel_rows)
+    problems = [f"f32 gate: {k} {gate[k]}" for k in over]
+    launches = {k: 0 for k in per}
+    for key in one:
+        r0, r1 = ranks[0][key], ranks[1][key]
+        same = r0["metrics"] == r1["metrics"] and all(
+            torch.equal(r0["params"][n][k], r1["params"][n][k])
+            for n in r0["params"] for k in r0["params"][n])
+        run = dict(ranks_identical=same, launches=[r0["launches"], r1["launches"]],
+                   one_process_launches=one[key]["launches"],
+                   block_inputs=r0["block_inputs"], tally=r0["tally"],
+                   step_ms=dict(one_process=one[key]["step_ms"], rank0=r0["step_ms"],
+                                rank1=r1["step_ms"]),
+                   peak_gib=dict(one_process=one[key]["peak_gib"], rank0=r0["peak_gib"],
+                                 rank1=r1["peak_gib"]),
+                   loss_G=[m["loss_G"] for m in r0["metrics"]],
+                   loss_G_one=[m["loss_G"] for m in one[key]["metrics"]])
+        res["runs"][key] = run
+        print(json.dumps({f"spatial_{key}": run}))
+        want = {k: v * SPATIAL["steps"] for k, v in per.items()}
+        if not same:
+            problems.append(f"{key}: the ranks' states or metrics differ")
+        for r in (r0, r1):
+            if r["launches"] != want:
+                problems.append(f"{key}: a rank launched {r['launches']}, want {want}")
+            rows = {n: shape[2] for n, shape in r["block_inputs"].items()}
+            if rows != _sp_rows():
+                problems.append(f"{key}: block input rows {rows}, want {_sp_rows()}")
+        if not (r0["tally"] or {}).get("collective-permute", {}).get("bytes"):
+            problems.append(f"{key}: no halo bytes in the tally {r0['tally']}")
+        if not all(math.isfinite(v) for m in r0["metrics"] for v in m.values()):
+            problems.append(f"{key}: non-finite metrics")
+        if key != "f32":
+            launches = {k: launches[k] + r0["launches"][k] + r1["launches"][k] for k in per}
+    print(json.dumps({"spatial_f32_gate": dict(card=card, gate=gate, over=over,
+                                               distances=distances)}))
+    if faults:
+        print(json.dumps({"spatial_faults": dict(card=card, over=planted)}))
+        missed = [f for f, o in planted.items() if not o["over"]]
+        if missed:
+            problems.append(f"the gate passed the planted faults {missed}")
+    if problems:
+        fail("spatial: " + "; ".join(problems))
+    return res, launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card check of dsgan_tpu_torch")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json")
@@ -2261,6 +2656,11 @@ def main(argv=None):
     ap.add_argument("--dp_faults", action="store_true",
                     help="only run the data-parallel comparison, then once with each of FAULTS "
                          "planted in the ranks, which its gate must fail, and exit")
+    ap.add_argument("--spatial", action="store_true",
+                    help="only run the spatial-axis phase (spatial_phase), and exit")
+    ap.add_argument("--spatial_faults", action="store_true",
+                    help="only run the spatial-axis f32 comparison, then once with each of "
+                         "SPATIAL_FAULTS planted in the ranks, which its gate must fail, and exit")
     ap.add_argument("--profile_trials", type=int, metavar="N",
                     help="only trace the graph phase's eager and replayed steps N times each, "
                          "without and with the trace's settling wait, count the traces that "
@@ -2322,6 +2722,17 @@ def main(argv=None):
         dp_phase(torch, np, bc, card, faults=FAULTS)
         print("chip_smoke: the data-parallel gate failed every planted fault")
         return 0
+    if args.spatial or args.spatial_faults:
+        _card_flags(torch)
+        res, _ = spatial_phase(torch, np, bc, card,
+                               faults=SPATIAL_FAULTS if args.spatial_faults else ())
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke_spatial.json"), "w") as f:
+                json.dump(res, f, indent=1)
+        print("chip_smoke: the spatial phase passed"
+              + (" and its gate failed every planted fault" if args.spatial_faults else ""))
+        return 0
 
     rows = check_kernels(torch, bc, instance_stats, 1, torch.bfloat16, "tanh", TOL_BF16, 20)
     rows += check_kernels(torch, bc, instance_stats, 16, torch.bfloat16, "tanh", TOL_BF16, 10)
@@ -2343,6 +2754,7 @@ def main(argv=None):
     fid = fid_phase(torch, np, card)
     diff = diffusion_phase(torch, np, bc, card)
     dp, dp_launches = dp_phase(torch, np, bc, card)
+    sp, sp_launches = spatial_phase(torch, np, bc, card)
     capture_must_fail(torch)
 
     kernels = []
@@ -2352,14 +2764,15 @@ def main(argv=None):
             ("K3", "block_core2_fwd_sm90", 553, "block_core2_fwd_sm90.cu", rows),
             ("K4", "block_core2_bwd_sm90", 598, "block_core2_bwd_sm90.cu", bwd_rows)):
         main = [r for r in table if r["kernel"] == name and r["batch"] == 16]
-        bf16 = [r for r in table if r["kernel"] == name and r["dtype"] == "bfloat16"]
+        bf16 = [r for r in table + sp["kernel_rows"]
+                if r["kernel"] == name and r["dtype"] == "bfloat16"]
         by_ops = sum(r["bound_ms"] for r in main if r["bound_by"] == "operations")
         kernels.append(dict(
             name=f"{name} {src_fn}", route="cuda", source=f"dsgan_tpu_torch/csrc/{src}",
             replaces=f"dsgan_tpu/pallas/block_core.py:{line}",
             launches=(serve_launches[name] + export_launches[name] + train_launches[name]
                       + graph_launches[name] + cli_launches[name] + cycle_launches[name]
-                      + dp_launches[name]),
+                      + dp_launches[name] + sp_launches[name]),
             max_abs_err=max(r["max_abs_err"] for r in bf16),
             ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
             bound_ms=sum(r["bound_ms"] for r in main),
@@ -2371,7 +2784,7 @@ def main(argv=None):
             json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
                            generator_agreement=agree, export=exported, training=training,
                            graph=graphed, cli=cli, zoo=zoo, cyclegan=cyclegan, fid=fid,
-                           diffusion=diff, dp=dp, kernels=kernels,
+                           diffusion=diff, dp=dp, spatial=sp, kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

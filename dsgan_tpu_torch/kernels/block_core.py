@@ -65,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from dsgan_tpu_torch.ops.norm import instance_stats
+from dsgan_tpu_torch.parallel import spatial
 
 # Shared memory a block may use on Hopper (232,448 bytes).
 MAX_SMEM = 227 * 1024
@@ -233,7 +234,7 @@ def block_core2_bwd_reference(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws,
             s1[:, :c1], s2[:, :c1], s1[:, c1:], s2[:, c1:])
 
 
-def in_fold(dn, h, mean, rsig, s1, s2):
+def in_fold(dn, h, mean, rsig, s1, s2, hw=None):
     """The InstanceNorm cotangent of h from the kernel's dn, S1, S2
     (``_in_fold`` of the JAX package):
 
@@ -241,8 +242,9 @@ def in_fold(dn, h, mean, rsig, s1, s2):
            = dn * rsig - h * c3 + (mean * c3 - rsig * S1 / HW)
 
     with per-(image, channel) f32 coefficients and one elementwise pass in
-    h's dtype."""
-    hw = h.shape[2] * h.shape[3]
+    h's dtype. ``hw``: the image's H * W where h is a strip of it (S1 and
+    S2 then the image's sums), else h's own."""
+    hw = h.shape[2] * h.shape[3] if hw is None else hw
     c3 = rsig ** 3 * s2 / hw
     c0 = mean * c3 - rsig * s1 / hw
 
@@ -775,11 +777,28 @@ def _cotangent(g, like):
     return g.to(like.dtype).contiguous(memory_format=CL)
 
 
+def _reduce_s(rows, *sums):
+    """K2's / K4's per-(image, channel) S sums of a strip summed over its
+    row group (one all-reduce), as the fold needs the image's; the sums
+    themselves without a spatial axis."""
+    if rows is None:
+        return sums
+    return spatial.sum_rows(torch.stack(sums), rows).unbind()
+
+
+def _fold_hw(rows, h):
+    """The H * W the fold divides by: the image's, of which h is a strip."""
+    return None if rows is None else h.shape[2] * rows.size * h.shape[3]
+
+
 class _BlockCoreIn(torch.autograd.Function):
     """``block_core_in`` with its backward: K1 forward, K2 backward, then
     the InstanceNorm fold (``_in_vjp_fwd`` / ``_in_vjp_bwd`` of the JAX
     package). The weights come unpacked and cast, so that autograd carries
-    their gradients to the parameters; ``packed`` is their kernel layout."""
+    their gradients to the parameters; ``packed`` is their kernel layout.
+    On a strip of the spatial axis the statistics are the image's, S1 and
+    S2 are summed over the row group before the fold, and the weight
+    gradients are this strip's part."""
 
     @staticmethod
     def forward(ctx, h, x, w1, b1, w2, b2, ws, gelu, packed):
@@ -787,6 +806,7 @@ class _BlockCoreIn(torch.autograd.Function):
         out = block_core(h, x, mean, rsig, w1, b1, w2, b2, ws, gelu, packed=packed)
         ctx.save_for_backward(h, x, mean, rsig, w1, b1, w2, ws)
         ctx.gelu, ctx.packed, ctx.b2_dtype = gelu, packed, b2.dtype
+        ctx.rows = spatial.active()
         return out
 
     @staticmethod
@@ -794,13 +814,16 @@ class _BlockCoreIn(torch.autograd.Function):
         h, x, mean, rsig, w1, b1, w2, ws = ctx.saved_tensors
         dn, dx, dw1, db1, dw2, db2, dws, s1, s2 = block_core_bwd(
             h, x, mean, rsig, _cotangent(g, h), w1, b1, w2, ws, ctx.gelu, packed=ctx.packed)
-        return (in_fold(dn, h, mean, rsig, s1, s2), dx, dw1.to(w1.dtype), db1.to(b1.dtype),
-                dw2.to(w2.dtype), db2.to(ctx.b2_dtype), dws.to(ws.dtype), None, None)
+        s1, s2 = _reduce_s(ctx.rows, s1, s2)
+        return (in_fold(dn, h, mean, rsig, s1, s2, _fold_hw(ctx.rows, h)), dx, dw1.to(w1.dtype),
+                db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype), dws.to(ws.dtype), None,
+                None)
 
 
 class _BlockCore2In(torch.autograd.Function):
     """``block_core2_in`` with its backward: K3 forward, K4 backward, each
-    part folded on its own (``_in2_vjp_fwd`` / ``_in2_vjp_bwd``)."""
+    part folded on its own (``_in2_vjp_fwd`` / ``_in2_vjp_bwd``); on a
+    strip, its four S sums summed over the row group first."""
 
     @staticmethod
     def forward(ctx, ha, hb, xa, xb, w1, b1, w2, b2, ws, gelu, packed):
@@ -810,6 +833,7 @@ class _BlockCore2In(torch.autograd.Function):
                           packed=packed)
         ctx.save_for_backward(ha, hb, xa, xb, ma, ra, mb, rb, w1, b1, w2, ws)
         ctx.gelu, ctx.packed, ctx.b2_dtype = gelu, packed, b2.dtype
+        ctx.rows = spatial.active()
         return out
 
     @staticmethod
@@ -818,9 +842,14 @@ class _BlockCore2In(torch.autograd.Function):
         (dna, dnb, dxa, dxb, dw1, db1, dw2, db2, dws, s1a, s2a, s1b, s2b) = block_core2_bwd(
             ha, hb, xa, xb, ma, ra, mb, rb, _cotangent(g, ha), w1, b1, w2, ws, ctx.gelu,
             packed=ctx.packed)
-        return (in_fold(dna, ha, ma, ra, s1a, s2a), in_fold(dnb, hb, mb, rb, s1b, s2b), dxa, dxb,
-                dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(ctx.b2_dtype),
-                dws.to(ws.dtype), None, None)
+        if ctx.rows is not None:  # the parts' widths differ: one flat all-reduce
+            ca = s1a.shape[1]
+            s1, s2 = _reduce_s(ctx.rows, torch.cat([s1a, s1b], 1), torch.cat([s2a, s2b], 1))
+            s1a, s1b, s2a, s2b = s1[:, :ca], s1[:, ca:], s2[:, :ca], s2[:, ca:]
+        hw = _fold_hw(ctx.rows, ha)
+        return (in_fold(dna, ha, ma, ra, s1a, s2a, hw), in_fold(dnb, hb, mb, rb, s1b, s2b, hw),
+                dxa, dxb, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                db2.to(ctx.b2_dtype), dws.to(ws.dtype), None, None)
 
 
 def _unpack(packed, c2=0):

@@ -4,15 +4,17 @@ base_model.py:18-177); and ``ChainedStep``, the counterpart of its
 ``make_chained_step``, which on the card replays one train step captured
 in a CUDA graph.
 
-The shell carries the options, the device, the data-parallel mesh,
+The shell carries the options, the device, the (data, spatial) mesh,
 checkpoints, the LR schedule and the step's metrics. The metrics stay 0-d
 device tensors until a caller asks for them; ``fetch_metrics`` brings
-them over in one copy. With ``--data_axis`` over several ranks
-(``parallel.mesh``; the counterpart of ``_jit_step`` / ``_place_batch``,
-``dsgan_tpu/models/base_model.py:156-236``) each rank keeps its rows of
-the global batch (``_local``), the state is broadcast from rank 0 once
-(``_on_mesh``), the steps reduce over the mesh, and only rank 0 writes
-checkpoints while the others wait for it.
+them over in one copy. With ``--data_axis`` / ``--spatial_axis`` over
+several ranks (``parallel.mesh``; the counterpart of ``_jit_step`` /
+``_place_batch``, ``dsgan_tpu/models/base_model.py:156-236``) each rank
+keeps its rows of the global batch, and on a spatial axis its strip of
+their image rows (``_local``), the state is broadcast from rank 0 once
+(``_on_mesh``), the steps reduce over the mesh, the visuals are gathered
+from the strips, and only rank 0 writes checkpoints while the others wait
+for it. Eval resolves ``data 1 x spatial S``, as the JAX package does.
 """
 
 import os
@@ -23,7 +25,14 @@ import torch
 
 from dsgan_tpu_torch.device import platform_device
 from dsgan_tpu_torch.models.layers import set_batchnorm_mesh
-from dsgan_tpu_torch.parallel import comms, multihost, replicate, resolve_mesh, shard_batch
+from dsgan_tpu_torch.parallel import (
+    comms,
+    gather_image_rows,
+    multihost,
+    replicate,
+    resolve_mesh,
+    shard_batch,
+)
 from dsgan_tpu_torch.utils import checkpoint as ckpt
 from dsgan_tpu_torch.utils.util import tensor2im
 
@@ -187,18 +196,20 @@ class BaseModel:
         self._plateau_bad = 0
         self._plateau_scale = 1.0
         # the data axis shards the fixed-size training batch; eval batches are
-        # ragged (no drop_last), so inference runs unsharded, as in JAX
+        # ragged (no drop_last), so inference takes the spatial axis alone, as
+        # in JAX
         self.mesh = resolve_mesh(getattr(opt, "data_axis", 0) if self.isTrain else 1,
                                  getattr(opt, "spatial_axis", 1),
                                  batch_size=getattr(opt, "batchSize", None) if self.isTrain
                                  else None, height=getattr(opt, "fineSize_h", None))
         if self.mesh is not None:
             d, s = self.mesh.shape
-            print(f"data-parallel mesh: data={d} x spatial={s} (rank {self.mesh.rank})")
+            print(f"mesh: data={d} x spatial={s} (data row {self.mesh.rank}, "
+                  f"image rows {self.mesh.row} of {s})")
 
     def _local(self, arr):
-        """This rank's rows of a host NHWC global batch (all of it without a
-        mesh)."""
+        """This rank's rows (and strip of image rows) of a host NHWC global
+        batch (all of it without a mesh)."""
         return arr if self.mesh is None else shard_batch(arr, self.mesh)
 
     def _on_mesh(self, *nets):
@@ -344,9 +355,10 @@ class BaseModel:
         if not bad:
             return
         dump_dir = os.path.join(self.save_dir, "anomaly")
+        state = self._checkpoint_state()  # every rank: it may gather over the mesh
         if multihost.is_primary():  # the metrics are the mesh's: every rank raises
             os.makedirs(dump_dir, exist_ok=True)
-            ckpt.save_state(self.save_dir, "anomaly", self._checkpoint_state())
+            ckpt.save_state(self.save_dir, "anomaly", state)
             for name in ("real_A", "real_B"):
                 arr = getattr(self, name + "_host", None)
                 if arr is not None:
@@ -358,14 +370,21 @@ class BaseModel:
 
     def get_current_visuals(self):
         """uint8 HWC images of the first sample: the host batch for the
-        inputs, the first image fetched from the device for the rest."""
+        inputs, the first image fetched from the device for the rest; on a
+        spatial axis each joined from the row group's strips (every rank
+        calls this)."""
+        rows = self.mesh is not None and self.mesh.spatial > 1
         out = OrderedDict()
         for name in self.visual_names:
             val = getattr(self, name + "_host", None)
             if val is None:
                 val = getattr(self, name, None)
                 if isinstance(val, torch.Tensor):
-                    val = val[:1].cpu()
+                    val = val[:1]
+                    val = (gather_image_rows(val.contiguous(), self.mesh, dim=1) if rows
+                           else val).cpu()
+            elif rows:
+                val = gather_image_rows(np.ascontiguousarray(val[:1]), self.mesh, dim=1)
             if val is not None:
                 out[name] = tensor2im(val)
         return out

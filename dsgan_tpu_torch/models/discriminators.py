@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dsgan_tpu_torch.models.layers import Conv2d, Norm, norm_uses_bias
+from dsgan_tpu_torch.parallel import spatial
 
 
 class _Discriminator(nn.Module):
@@ -57,8 +58,16 @@ class NLayerDiscriminator(_Discriminator):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x):
+        """On a strip of the spatial axis the stride-2 levels run split, and
+        from the first conv whose output height does not split over the row
+        group (at the latest the stride-1 tail, H / 8 - 1 rows) on the image
+        is gathered and the rest runs whole on every rank
+        (``spatial.sequential``): the logits are the whole image's."""
         in_dtype = x.dtype
-        return self._out(self.model(x.to(self.compute_dtype or in_dtype)), in_dtype)
+        h = x.to(self.compute_dtype or in_dtype)
+        if spatial.active() is not None:
+            return self._out(spatial.sequential(self.model, h), in_dtype)
+        return self._out(self.model(h), in_dtype)
 
 
 class PixelDiscriminator(_Discriminator):

@@ -32,6 +32,7 @@ from dsgan_tpu_torch.models.layers import (
     PReLU,
     norm_uses_bias,
 )
+from dsgan_tpu_torch.parallel import spatial
 
 
 class _Generator(nn.Module):
@@ -60,6 +61,9 @@ class ResnetBlock(nn.Module):
         self.conv_block = nn.Sequential(*layers)
 
     def forward(self, x):
+        """On a strip each pad runs with its conv (``spatial.sequential``)."""
+        if spatial.active() is not None:
+            return x + spatial.sequential(self.conv_block, x)
         return x + self.conv_block(x)
 
 
@@ -86,6 +90,10 @@ class ResnetGenerator(_Generator):
         self.model = nn.Sequential(*layers)
 
     def _forward(self, x):
+        """On a strip of the spatial axis a level whose height does not
+        split over the row group runs whole (``spatial.sequential``)."""
+        if spatial.active() is not None:
+            return spatial.sequential(self.model, x)
         return self.model(x)
 
 

@@ -2,12 +2,19 @@
 GELU flavours, the shared-slope PReLU, the ``--norm`` layers, and the
 torch layers the zoo builds from, each computing in its input's dtype with
 its weights cast at use, as the JAX package's layers do (f32 parameters,
-a bf16 compute dtype).
+a bf16 compute dtype). On a strip of the spatial axis
+(``parallel.spatial``) the convs fetch their halo rows from the row group,
+a ``Pad`` hands its rows and mode to the conv after it, which fetches
+them (reflected only at the image's top and bottom), and ``Dropout``
+draws the whole image's mask and keeps its strip's rows, so that a strip
+sees the mask one process would.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dsgan_tpu_torch.parallel import spatial
 
 GELU_MODES = ("auto", "exact", "tanh")
 
@@ -50,7 +57,15 @@ class PReLU(nn.PReLU):
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with its weight and bias cast to the input's dtype."""
 
-    def forward(self, x):
+    def forward(self, x, pad=None):
+        """``pad``: on a strip, the (rows, mode) of the ``Pad`` before this
+        conv, which padded W alone (``spatial.sequential``)."""
+        rows = spatial.active()
+        if rows is not None:
+            padding, mode = (self.padding, "zero") if pad is None else (
+                (pad[0], self.padding[1]), pad[1])
+            return spatial.conv2d(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype),
+                                  self.stride, padding, self.groups, rows, mode)
         return self._conv_forward(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype))
 
 
@@ -67,6 +82,11 @@ class ConvTranspose2d(nn.ConvTranspose2d):
     and bias cast to the input's dtype."""
 
     def forward(self, x):
+        rows = spatial.active()
+        if rows is not None:
+            return spatial.conv_transpose2d(x, cast(self.weight, x.dtype),
+                                            cast(self.bias, x.dtype), self.stride, self.padding,
+                                            self.output_padding, rows)
         return F.conv_transpose2d(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype), self.stride,
                                   self.padding, self.output_padding, self.groups, self.dilation)
 
@@ -163,7 +183,13 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        rows = spatial.active()
+        if rows is None:
+            mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        else:
+            b, c, h, w = x.shape
+            mask = (torch.rand((b, c, h * rows.size, w), generator=self.generator,
+                               device=x.device) < keep).narrow(2, rows.index * h, h)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -188,27 +214,31 @@ def set_dropout_generator(net, generator):
     return n
 
 
+def _sides(t, p, mode, dim):
+    """``t`` padded by ``p`` along ``dim`` on both sides."""
+    if mode not in ("reflect", "replicate"):
+        raise NotImplementedError(f"padding [{mode}] is not implemented")
+    n = t.shape[dim]
+    if mode == "reflect":
+        lo, hi = t.narrow(dim, 1, p).flip(dim), t.narrow(dim, n - 1 - p, p).flip(dim)
+    else:
+        size = list(t.shape)
+        size[dim] = p
+        lo, hi = t.narrow(dim, 0, 1).expand(size), t.narrow(dim, n - 1, 1).expand(size)
+    return torch.cat([lo, t, hi], dim)
+
+
 def pad2d(x, p, mode="reflect"):
     """``ReflectionPad2d`` (``reflect``) or ``ReplicationPad2d`` (``replicate``)
     of W, then of H, built from slices, flips and a concat: the same values
     as ``F.pad``, but a backward without atomic adds. ``F.pad``'s reflect and
     replicate backward on CUDA adds the border's gradients atomically, in an
     order that changes from run to run, so a train step would not repeat
-    bit for bit."""
-    if mode not in ("reflect", "replicate"):
-        raise NotImplementedError(f"padding [{mode}] is not implemented")
-
-    def sides(t, dim):
-        n = t.shape[dim]
-        if mode == "reflect":
-            lo, hi = t.narrow(dim, 1, p).flip(dim), t.narrow(dim, n - 1 - p, p).flip(dim)
-        else:
-            size = list(t.shape)
-            size[dim] = p
-            lo, hi = t.narrow(dim, 0, 1).expand(size), t.narrow(dim, n - 1, 1).expand(size)
-        return torch.cat([lo, t, hi], dim)
-
-    return sides(sides(x, 3), 2)
+    bit for bit. A strip has no rows to pad H with: there the conv after a
+    ``Pad`` fetches them (``spatial.sequential``)."""
+    if spatial.active() is not None:
+        raise ValueError("pad2d on a strip: run the Pad and its conv through spatial.sequential")
+    return _sides(_sides(x, p, mode, 3), p, mode, 2)
 
 
 class Pad(nn.Module):
@@ -220,3 +250,8 @@ class Pad(nn.Module):
 
     def forward(self, x):
         return pad2d(x, self.p, self.mode)
+
+    def pad_w(self, x):
+        """W alone padded; on a strip the conv after this pad fetches the
+        rows (``spatial.sequential``)."""
+        return _sides(x, self.p, self.mode, 3)

@@ -41,6 +41,7 @@ from torch import nn
 from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.kernels.block_core import block_core2_in, block_core_in, pack_weights
 from dsgan_tpu_torch.models.layers import PReLU, cast, gelu, gelu_is_tanh, prelu
+from dsgan_tpu_torch.parallel import spatial
 
 CL = torch.channels_last
 
@@ -143,10 +144,14 @@ class UpBlock(nn.Module):
         self.gelu_mode = gelu_mode
         self.model = nn.Sequential(nn.ConvTranspose2d(cin, features, 3, 2, 1, 1))
 
-    def forward(self, x, skip):
+    def core(self, x):
+        """The upsample alone: ConvT + IN + GELU."""
         deconv = self.model[0]
         h = ops.conv_transpose2d(x, _w(deconv.weight, x), _w(deconv.bias, x))
-        h = gelu(ops.instance_norm(h), self.gelu_mode)
+        return gelu(ops.instance_norm(h), self.gelu_mode)
+
+    def forward(self, x, skip):
+        h = self.core(x)
         if self.split:
             return h, skip
         return torch.cat([h, skip], dim=1)
@@ -167,14 +172,17 @@ class DownProject(nn.Sequential):
                     self.gelu_mode)
 
 
-def _pool_pyramid(x, max_scale):
+def _pool_pyramid(x, max_scale, level=0, lv=None):
     """{s: max_pool2d(x, s)} for s = 1, 2, 4, .. max_scale, each level pooled
-    from the one before: disjoint-window maxima compose exactly."""
+    from the one before: disjoint-window maxima compose exactly. ``lv``:
+    the generator's levels on a strip (``parallel.spatial.Levels``), ``x``
+    at its ``level``."""
     pyr = {1: x}
     s = 1
     while s < max_scale:
-        pyr[2 * s] = ops.max_pool2d(pyr[s], 2)
+        pyr[2 * s] = ops.max_pool2d(pyr[s], 2) if lv is None else lv.pool(pyr[s], level)
         s *= 2
+        level += 1
     return pyr
 
 
@@ -231,22 +239,31 @@ class OriginMLKA(nn.Module):
         self.shortcut = nn.Sequential(nn.Conv2d(3, 64, 1, bias=False))
 
     def forward(self, x):
-        pool = ops.max_pool2d
+        lv = spatial.Levels(x.shape[2], 5)  # levels 0 (x) .. 4 (d8)
         d1 = ops.conv2d(x, _w(self.to32.weight, x))
-        d2 = self.mid32(pool(d1, 2))
-        d3 = ops.conv2d(d2, _w(self.to64.weight, x))
-        d4 = self.mid64(pool(d3, 2))
-        d5 = ops.conv2d(d4, _w(self.to128.weight, x))
-        d6 = self.mid128(pool(d5, 2))
-        d7 = ops.conv2d(d6, _w(self.to256.weight, x))
-        d8 = self.mid256(pool(d7, 2))
+        with lv.at(1):
+            d2 = self.mid32(lv.pool(d1, 0))
+            d3 = ops.conv2d(d2, _w(self.to64.weight, x))
+        with lv.at(2):
+            d4 = self.mid64(lv.pool(d3, 1))
+            d5 = ops.conv2d(d4, _w(self.to128.weight, x))
+        with lv.at(3):
+            d6 = self.mid128(lv.pool(d5, 2))
+            d7 = ops.conv2d(d6, _w(self.to256.weight, x))
+        with lv.at(4):
+            d8 = self.mid256(lv.pool(d7, 3))
 
-        u1 = ops.conv2d(self.up1(d8, d6), _w(self.upc1[0].weight, x))
-        u1 = self.upc1[1](u1)
-        u2 = self.upc2(self.up2(u1, d4))
-        u3 = self.upc3(self.up3(u2, d3))
+        with lv.at(3):
+            u1 = ops.conv2d(torch.cat([lv.up(self.up1.core, d8, 4), d6], 1),
+                            _w(self.upc1[0].weight, x))
+            u1 = self.upc1[1](u1)
+        with lv.at(2):
+            u2 = self.upc2(torch.cat([lv.up(self.up2.core, u1, 3), d4], 1))
+        with lv.at(1):
+            u3 = self.upc3(torch.cat([lv.up(self.up3.core, u2, 2), d3], 1))
         up4 = self.up4[0]
-        u4 = ops.instance_norm(ops.conv_transpose2d(u3, _w(up4.weight, x), _w(up4.bias, x)))
+        u4 = lv.up(lambda t: ops.instance_norm(ops.conv_transpose2d(t, _w(up4.weight, x),
+                                                                    _w(up4.bias, x))), u3, 1)
         sc = ops.instance_norm(ops.conv2d(x, _w(self.shortcut[0].weight, x)))
         return gelu(u4 + sc, self.gelu_mode)
 
@@ -284,31 +301,52 @@ class MixConvNeXtML(nn.Module):
         self.local = OriginMLKA(g)
         self.res = nn.Conv2d(64, 3, 3, padding=1)
 
-    def _skips(self, name, r):
-        """The level's projections and its stride-2 pool, from one pyramid."""
+    def _skips(self, name, r, level, lv):
+        """The level's projections and its stride-2 pool, from one pyramid
+        (``r`` at ``level`` of the levels ``lv``)."""
         specs = _SKIPS[name][1]
-        pyr = _pool_pyramid(r, specs[-1][0])
+        pyr = _pool_pyramid(r, specs[-1][0], level, lv)
         mods = getattr(self, name)
-        return [mods[f"to{cout // 64}"](pyr[s]) for s, cout in specs], pyr[2]
+        out = []
+        for j, (s, cout) in enumerate(specs, 1):
+            with lv.at(level + j):
+                out.append(mods[f"to{cout // 64}"](pyr[s]))
+        return out, pyr[2]
 
     def forward(self, x):
+        """On a strip of the spatial axis, a level whose height does not
+        split over the row group (``spatial.Levels``) runs whole on every
+        rank: gathered where it is pooled into, its rows taken back where it
+        is upsampled out of."""
         in_dtype = x.dtype
         x = x.to(self.compute_dtype or self.res.weight.dtype).contiguous(memory_format=CL)
+        lv = spatial.Levels(x.shape[2], 5)
 
         r1 = self.c1(x)
-        d64, p1 = self._skips("down64", r1)
-        r2 = self.c2(p1)
-        d128, p2 = self._skips("down128", r2)
-        r3 = self.c3(p2)
-        d256, p3 = self._skips("down256", r3)
-        r4 = self.c4(p3)
-        d512, p4 = self._skips("down512", r4)
-        r5 = self.c5(p4)
+        d64, p1 = self._skips("down64", r1, 0, lv)
+        with lv.at(1):
+            r2 = self.c2(p1)
+        d128, p2 = self._skips("down128", r2, 1, lv)
+        with lv.at(2):
+            r3 = self.c3(p2)
+        d256, p3 = self._skips("down256", r3, 2, lv)
+        with lv.at(3):
+            r4 = self.c4(p3)
+        d512, p4 = self._skips("down512", r4, 3, lv)
+        with lv.at(4):
+            r5 = self.c5(p4)
+            a1 = r5 + d64[3] + d128[2] + d256[1] + d512[0]
 
-        o1 = self.uc1(*self.u1(r5 + d64[3] + d128[2] + d256[1] + d512[0], r4))
-        o2 = self.uc2(*self.u2(o1 + d64[2] + d128[1] + d256[0], r3))
-        o3 = self.uc3(*self.u3(o2 + d64[1] + d128[0], r2))
-        o4 = self.uc4(*self.u4(o3 + d64[0], r1))
+        with lv.at(3):
+            o1 = self.uc1(lv.up(self.u1.core, a1, 4), r4)
+            a2 = o1 + d64[2] + d128[1] + d256[0]
+        with lv.at(2):
+            o2 = self.uc2(lv.up(self.u2.core, a2, 3), r3)
+            a3 = o2 + d64[1] + d128[0]
+        with lv.at(1):
+            o3 = self.uc3(lv.up(self.u3.core, a3, 2), r2)
+            a4 = o3 + d64[0]
+        o4 = self.uc4(lv.up(self.u4.core, a4, 1), r1)
 
         loc = self.local(x)
         out = ops.conv2d(o4 + loc, _w(self.res.weight, x), _w(self.res.bias, x), padding=1)

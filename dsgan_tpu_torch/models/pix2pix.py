@@ -48,7 +48,14 @@ from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.models.base_model import BaseModel, ChainedStep
 from dsgan_tpu_torch.models.layers import set_dropout_generator
 from dsgan_tpu_torch.models.registry import define_D, define_G, define_vgg, generator_entries
-from dsgan_tpu_torch.parallel import data_size, query_pool, reduce_gradients, reduce_metrics
+from dsgan_tpu_torch.parallel import (
+    data_size,
+    gather_image_rows,
+    query_pool,
+    reduce_gradients,
+    reduce_metrics,
+    spatial,
+)
 from dsgan_tpu_torch.utils import checkpoint as ckpt
 from dsgan_tpu_torch.utils.convert import (
     load_params_npz,
@@ -214,8 +221,10 @@ def generator_loss(cfg, state, real_A, real_B, fake, feats_real, mesh=None):
     """The G loss terms (reference backward_G, pix2pix_model.py:164-199) of
     ``fake`` against the current D, under the JAX step's names;
     ``feats_real``: the target's VGG taps, or None without the VGG term. On
-    a mesh the TV term, a sum over the batch, is this rank's part times the
-    data size (its divisor over it), so that the mesh's average is the global sum."""
+    a mesh each term is this rank's share (``parallel.mesh``): the TV term,
+    a sum over the batch and its image rows, is this rank's part times the
+    data size (its divisor over it), so that the shares summed over the
+    mesh and divided by the data size are the global sum."""
     zero = torch.zeros((), device=fake.device)
     aux = {"loss_vgg": zero, "loss_G_GAN": zero}
     if cfg.use_gan:
@@ -237,10 +246,16 @@ def make_train_step(cfg: Pix2PixConfig, mesh=None):
     ``lr`` a float, or a 0-d device tensor (the captured step's);
     ``metrics`` holds 0-d f32 device tensors under the JAX step's names;
     ``fake_B`` is the generator's output, (B, H, W, 3) f32, detached. On a
-    data-parallel ``mesh`` the inputs are this rank's rows, and the metrics
-    and the updates are the global batch's (``parallel.mesh``)."""
+    ``mesh`` the inputs are this rank's rows (and on a spatial axis its
+    strip of their image rows, the step running under
+    ``spatial.rows(mesh)``), and the metrics and the updates are the
+    global batch's (``parallel.mesh``)."""
 
     def step(state, real_A, real_B, lr):
+        with spatial.rows(mesh):
+            return _step(state, real_A, real_B, lr)
+
+    def _step(state, real_A, real_B, lr):
         raw_B = real_B
         real_A = images(real_A, cfg.compute_dtype)
         real_B = images(real_B, cfg.compute_dtype)
@@ -359,8 +374,9 @@ class Pix2PixModel(BaseModel):
             w_gan=float(opt.w_gan), w_vgg=float(opt.w_vgg), w_tv=float(opt.w_tv),
             w_ss=float(opt.w_ss), use_vgg=use_vgg, beta1=opt.beta1,
             compute_dtype=self.compute_dtype, fuse_d_batch=opt.norm != "batch")
-        self.state = init_state(self.netG, self.netD, vgg, self.cfg,
-                                (opt.fineSize_h, opt.fineSize_w), d_input_nc, seed=opt.seed)
+        rows = opt.fineSize_h // (self.mesh.spatial if self.mesh is not None else 1)
+        self.state = init_state(self.netG, self.netD, vgg, self.cfg, (rows, opt.fineSize_w),
+                                d_input_nc, seed=opt.seed)
         self._on_mesh(self.netG, self.netD)
         self._step_fn = make_train_step(self.cfg, self.mesh)
         self._chained = chained_train_step(self._step_fn, self.cfg)
@@ -429,7 +445,7 @@ class Pix2PixModel(BaseModel):
         was_training = self.netG.training
         if was_training:
             self.netG.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), spatial.rows(self.mesh):
             y = self.netG(images(self.real_A, self.compute_dtype))
             self.fake_B = y.permute(0, 2, 3, 1).float()
         if was_training:
@@ -446,30 +462,42 @@ class Pix2PixModel(BaseModel):
             return x.float().numpy()
         return ((x.float() + 1.0) / 2.0 * 255.0).numpy()
 
+    def _strip(self, arr):
+        """A host batch placed on the device: on a spatial axis this rank's
+        strip of its image rows (the getters below hand back whole images)."""
+        if self.mesh is not None and self.mesh.spatial > 1:
+            arr = np.asarray(arr)[:, self.mesh.strip(np.asarray(arr).shape[1])]
+        return self._place_batch(arr)
+
+    def _joined(self, t):
+        """An NHWC batch joined from the row group's strips (itself without
+        a spatial axis)."""
+        return gather_image_rows(t.contiguous(), self.mesh, dim=1) if self.mesh else t
+
     def get_img_tir(self, input):
         """Place the TIR ("A") batch as real_A, whatever the direction, and
         return it in [0, 255] (reference pix2pix_model.py:292-294)."""
-        self.real_A = self._place_batch(input["A"])
-        return self._to_255(self.real_A)
+        self.real_A = self._strip(input["A"])
+        return self._to_255(self._joined(self.real_A))
 
     def get_img_gen(self, input):
         """Place the target batch, run G on real_A, return the fake in
         [0, 255] (reference pix2pix_model.py:296-300)."""
-        self.real_B = self._place_batch(input[self._sides()[1]])
+        self.real_B = self._strip(input[self._sides()[1]])
         self.forward()
-        return self._to_255(self.fake_B)
+        return self._to_255(self._joined(self.fake_B))
 
     def get_img_label(self, input):
         """Place the target batch and return it in [0, 255]
         (reference pix2pix_model.py:302-305)."""
-        self.real_B = self._place_batch(input[self._sides()[1]])
-        return self._to_255(self.real_B)
+        self.real_B = self._strip(input[self._sides()[1]])
+        return self._to_255(self._joined(self.real_B))
 
     def get_img_nir(self, input):
         """Place the source batch and return it in [0, 255]
         (reference pix2pix_model.py:307-310)."""
-        self.real_A = self._place_batch(input[self._sides()[0]])
-        return self._to_255(self.real_A)
+        self.real_A = self._strip(input[self._sides()[0]])
+        return self._to_255(self._joined(self.real_A))
 
     def cal_ssim(self, input=None):
         """The last step's SSIM (computed on the device in the step)."""
@@ -483,8 +511,14 @@ class Pix2PixModel(BaseModel):
     def _checkpoint_state(self):
         """The train state and the LR schedule's position. The plateau
         policy's state is not saved, as the JAX package saves only ``state``
-        and ``lr_last_epoch`` (``dsgan_tpu/models/pix2pix.py:540-550``)."""
-        return dict(self.state.state_dict(), lr_last_epoch=self._last_epoch)
+        and ``lr_last_epoch`` (``dsgan_tpu/models/pix2pix.py:540-550``). On
+        a spatial axis the pool's images are gathered from the row group's
+        strips (every rank calls this), so a checkpoint holds whole images
+        whatever the mesh."""
+        st = dict(self.state.state_dict(), lr_last_epoch=self._last_epoch)
+        if self.mesh is not None and self.mesh.spatial > 1:
+            st["pool_images"] = gather_image_rows(st["pool_images"], self.mesh)
+        return st
 
     def _load_checkpoint_state(self, st):
         """Restore a checkpoint of either mode. The plateau policy starts
@@ -493,6 +527,9 @@ class Pix2PixModel(BaseModel):
         hold, is ignored. ``resume_position``: where a preempted run stood
         (the train CLI's "run" entry), or None."""
         self._chained.reset()
+        if self.mesh is not None and self.mesh.spatial > 1:  # this rank's strip of the pool
+            st = dict(st, pool_images=st["pool_images"][:, :, self.mesh.strip(
+                st["pool_images"].shape[2])])
         self.state.load_state_dict(st)
         self._last_epoch = int(st["lr_last_epoch"])
         self.resume_position = st.get("run")

@@ -26,6 +26,6 @@ class TestModel(Pix2PixModel):
         self.visual_names = ["real_A", "fake_B"]
 
     def set_input(self, input):
-        self.real_A_host = input["A"]
-        self.real_A = self._place_batch(input["A"])
+        self.real_A_host = self._local(input["A"])  # a strip on the spatial axis
+        self.real_A = self._place_batch(self.real_A_host)
         self.image_paths = input.get("A_paths", [])

@@ -53,7 +53,7 @@ class Vgg16Features(nn.Module):
             conv = self.features[idx]
             if i and VGG16_FEATURE_INDEX[i - 1] + 2 != idx:
                 h = ops.max_pool2d(h, 2)
-            h = F.relu(F.conv2d(h, conv.weight.to(h.dtype), conv.bias.to(h.dtype), padding=1))
+            h = F.relu(ops.conv2d(h, conv.weight.to(h.dtype), conv.bias.to(h.dtype), padding=1))
             if i in _TAP_AFTER:
                 taps.append(h.to(in_dtype))
         return taps

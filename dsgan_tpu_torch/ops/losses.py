@@ -10,12 +10,17 @@ Semantics of the reference recipe, as the JAX package pins them:
     (pix2pix_model.py:180-186);
   * SSIM loss: 1 - ssim((real + 1) / 2, (fake + 1) / 2, data_range=1)
     (pix2pix_model.py:193-195).
-Every reduction accumulates in f32. Images are NCHW.
+Every reduction accumulates in f32. Images are NCHW. On a strip of the
+spatial axis (``parallel.spatial``) each term is this rank's share of the
+image's: a mean's share its mean over the row group's size, TV's the sum
+of its strip's differences and of the one across its lower edge, SSIM's
+the global value over the size.
 """
 
 import torch
 
 from dsgan_tpu_torch.ops.ssim import ssim
+from dsgan_tpu_torch.parallel import spatial
 
 
 def gan_loss(pred, target_is_real, mode="vanilla"):
@@ -29,17 +34,18 @@ def gan_loss(pred, target_is_real, mode="vanilla"):
     pred = pred.float()
     target = torch.full_like(pred, 1.0 if target_is_real else 0.0)
     if mode == "lsgan":
-        return (pred - target).square().mean()
+        return spatial.mean((pred - target).square())
     if mode == "vanilla":
-        return (pred.clamp(min=0.0) - pred * target + torch.log1p(torch.exp(-pred.abs()))).mean()
+        return spatial.mean(pred.clamp(min=0.0) - pred * target
+                            + torch.log1p(torch.exp(-pred.abs())))
     if mode == "bce":
         p = pred.clamp(1e-12, 1.0 - 1e-12)
-        return (-(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p))).mean()
+        return spatial.mean(-(target * torch.log(p) + (1.0 - target) * torch.log(1.0 - p)))
     raise ValueError(f"unknown gan loss mode: {mode}")
 
 
 def l1_loss(a, b):
-    return (a.float() - b.float()).abs().mean()
+    return spatial.mean((a.float() - b.float()).abs())
 
 
 TV_DIVISOR = 320 * 256
@@ -49,6 +55,10 @@ def tv_loss(x, divisor=TV_DIVISOR):
     """Total variation over W and H, summed, over the fixed divisor."""
     xf = x.float()
     diff_w = (xf[:, :, :, 1:] - xf[:, :, :, :-1]).abs().sum()
+    rows = spatial.active()
+    if rows is not None:  # the strip and the row below it (none below the image)
+        n = xf.shape[2] + (0 if rows.last else 1)
+        xf = spatial.halo(xf, 0, 1, rows=rows).narrow(2, 0, n)
     diff_h = (xf[:, :, 1:, :] - xf[:, :, :-1, :]).abs().sum()
     return (diff_w + diff_h) / divisor
 
@@ -60,7 +70,7 @@ def perceptual_loss(feats_fake, feats_real, num_taps=4):
     total = 0.0
     for i in range(num_taps):
         diff = (feats_fake[i] - feats_real[i].to(feats_fake[i].dtype)).abs()
-        total = total + diff.float().mean()
+        total = total + spatial.mean(diff.float())
     return total
 
 
@@ -68,4 +78,4 @@ def ssim_loss(real, fake):
     """1 - SSIM on [-1, 1] images mapped to [0, 1], data_range 1."""
     x = (real.float() + 1.0) / 2.0
     y = (fake.float() + 1.0) / 2.0
-    return 1.0 - ssim(x, y, data_range=1, size_average=True)
+    return spatial.share(1.0 - ssim(x, y, data_range=1, size_average=True))

@@ -8,13 +8,16 @@ covariance). ``psnr_uint8`` / ``ssim_uint8`` compute them in f32 on the
 device, so a train step needs no host sync for them. The uniform-filter
 SSIM with its edges cropped equals a VALID-window mean. ``psnr_ref`` /
 ``ssim_ref`` are the same protocol on host numpy arrays in float64, as
-skimage computes it: the eval harness's per-image numbers.
+skimage computes it: the eval harness's per-image numbers. On a strip of
+the spatial axis ``mse_uint8`` and ``ssim_uint8`` give this rank's share
+of the image's value (the shares of a row group sum to it).
 """
 
 import numpy as np
 import torch
 
 from dsgan_tpu_torch.ops.ssim import separable_filter_valid
+from dsgan_tpu_torch.parallel import spatial
 
 
 def normalize_u8(x):
@@ -34,7 +37,7 @@ def quantize_uint8(x):
 
 def mse_uint8(label, result):
     """Mean squared error of quantized [0, 255] tensors, f32."""
-    return (label.float() - result.float()).square().mean()
+    return spatial.mean((label.float() - result.float()).square())
 
 
 def psnr_from_mse(mse, data_range=255.0):
@@ -51,6 +54,11 @@ def ssim_uint8(label, result, data_range=255.0, win_size=7, k1=0.01, k2=0.03):
     window, sample covariance (NP / (NP - 1)), the mean over channels and
     positions."""
     x, y = label.float(), result.float()
+    rows = spatial.active()
+    if rows is not None:  # the map rows whose window starts in this strip
+        c, hg = x.shape[1], x.shape[2] * rows.size
+        xy, keep = spatial.valid_rows(torch.cat([x, y], 1), win_size)
+        x, y = xy.split(c, 1)
     n = win_size * win_size
     cov_norm = n / (n - 1.0)
     c1, c2 = (k1 * data_range) ** 2, (k2 * data_range) ** 2
@@ -64,6 +72,10 @@ def ssim_uint8(label, result, data_range=255.0, win_size=7, k1=0.01, k2=0.03):
     vy = cov_norm * (mean(y * y) - uy * uy)
     vxy = cov_norm * (mean(x * y) - ux * uy)
     s = ((2 * ux * uy + c1) * (2 * vxy + c2)) / ((ux * ux + uy * uy + c1) * (vx + vy + c2))
+    if rows is not None:
+        count = s.shape[0] * s.shape[1] * (hg - (win_size - 1) if hg >= win_size else hg) \
+            * s.shape[3]
+        return s.narrow(2, 0, keep).sum() / count
     return s.mean()
 
 

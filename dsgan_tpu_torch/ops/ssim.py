@@ -7,7 +7,10 @@ configured-callable forms.
 
 The JAX package filters with banded matmuls (a TPU layout choice); here
 the filter is a grouped convolution with the same taps, which gives the
-same sums.
+same sums. On a strip of the spatial axis a rank computes the map rows
+whose window starts in its strip, from the strip and the win - 1 rows
+below it, and the per-channel means sum over the row group: every rank
+gets the image's value.
 """
 
 import functools
@@ -16,6 +19,8 @@ import warnings
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dsgan_tpu_torch.parallel import spatial
 
 MS_SSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -58,6 +63,9 @@ def separable_filter_valid(x, win):
 def _ssim_maps(x, y, data_range, win, k=(0.01, 0.03)):
     """(N, C) means of the SSIM map and of the CS map (MS_SSIM.py:55-92)."""
     c1, c2 = (k[0] * data_range) ** 2, (k[1] * data_range) ** 2
+    rows = spatial.active()
+    if rows is not None:
+        return _ssim_maps_rows(x, y, win, c1, c2, rows)
     mu1, mu2 = separable_filter_valid(x, win), separable_filter_valid(y, win)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     sigma1_sq = separable_filter_valid(x * x, win) - mu1_sq
@@ -65,8 +73,28 @@ def _ssim_maps(x, y, data_range, win, k=(0.01, 0.03)):
     sigma12 = separable_filter_valid(x * y, win) - mu1_mu2
     cs_map = (2 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
     ssim_map = ((2 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs_map
-    spatial = tuple(range(2, x.dim()))
-    return ssim_map.mean(dim=spatial), cs_map.mean(dim=spatial)
+    dims = tuple(range(2, x.dim()))
+    return ssim_map.mean(dim=dims), cs_map.mean(dim=dims)
+
+
+def _ssim_maps_rows(x, y, win, c1, c2, rows):
+    """``_ssim_maps`` on a strip of a 4-D batch: the map rows this rank
+    owns, their sums over the row group over the image's count."""
+    if x.dim() != 4:
+        raise NotImplementedError("SSIM of volumes on the spatial axis")
+    c, hg = x.shape[1], x.shape[2] * rows.size
+    xy, keep = spatial.valid_rows(torch.cat([x, y], 1), len(win))
+    x, y = xy.split(c, 1)
+    mu1, mu2 = separable_filter_valid(x, win), separable_filter_valid(y, win)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = separable_filter_valid(x * x, win) - mu1_sq
+    sigma2_sq = separable_filter_valid(y * y, win) - mu2_sq
+    sigma12 = separable_filter_valid(x * y, win) - mu1_mu2
+    cs_map = ((2 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)).narrow(2, 0, keep)
+    ssim_map = ((2 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)).narrow(2, 0, keep) * cs_map
+    count = (hg - (len(win) - 1) if hg >= len(win) else hg) * cs_map.shape[3]
+    sums = spatial.sum_rows(torch.stack([ssim_map.sum(dim=(2, 3)), cs_map.sum(dim=(2, 3))]), rows)
+    return sums[0] / count, sums[1] / count
 
 
 def _check(x, y, win_size):
@@ -114,6 +142,8 @@ def ms_ssim(x, y, data_range=255, size_average=True, win_size=11, win_sigma=1.5,
     and multiplied; between levels ``_pool``. H and W must exceed
     (win_size - 1) * 16."""
     x, y = _check(x, y, win_size)
+    if spatial.active() is not None:
+        raise NotImplementedError("MS-SSIM on a strip: gather the images first")
     if min(x.shape[-2:]) <= (win_size - 1) * 16:
         raise ValueError("Image size should be larger than %d due to the 4 downsamplings "
                          "in ms-ssim" % ((win_size - 1) * 16))

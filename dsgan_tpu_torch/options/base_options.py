@@ -11,28 +11,29 @@ built, the GELU flavour from ``--gelu`` through ``define_G(gelu_mode=...)``.
 
 Flags the port parses but cannot honour yet raise on a value other than
 their default, naming the ROADMAP.md item that brings them
-(``unsupported``).
+(``unsupported``); ``--spatial_axis`` above 1 runs the default recipe and
+raises for the rest (``parallel.check_spatial_recipe``, item 21).
 """
 
 import argparse
 import os
 
-from dsgan_tpu_torch.parallel import multihost
+from dsgan_tpu_torch.parallel import check_spatial_recipe, multihost
 from dsgan_tpu_torch.utils import util
 
 # (flag, test that the value needs something the port does not have, why)
 _UNSUPPORTED = (
-    ("spatial_axis", lambda v: v > 1, "spatial sharding is ROADMAP.md queue A item 13"),
     ("remat", bool, "rematerialization is not needed: the default recipe's batch 16 at "
                     "256x256 takes under 9 GiB of the H100's 80 GB"),
 )
 
 
-def unsupported(opt):
+def unsupported(opt, is_train=False):
     """Raise on the first flag whose value the port cannot run yet."""
     for flag, bad, why in _UNSUPPORTED:
         if hasattr(opt, flag) and bad(getattr(opt, flag)):
             raise NotImplementedError(f"--{flag} {getattr(opt, flag)!r} is not ported: {why}")
+    check_spatial_recipe(opt, is_train)
 
 
 class BaseOptions:
@@ -136,7 +137,8 @@ class BaseOptions:
                             help="data-parallel mesh size in ranks (0 = all ranks, reduced until "
                                  "it divides --batchSize)")
         parser.add_argument("--spatial_axis", type=int, default=1,
-                            help="spatial-parallel mesh size (not ported: 1)")
+                            help="spatial-parallel mesh size: image rows over this many ranks "
+                                 "(the default recipe; ROADMAP.md item 21 for the rest)")
         parser.add_argument("--num_hosts", type=int, default=1,
                             help="processes of the run, one a card (torchrun's, or JAX's "
                                  "JAX_COORDINATOR_ADDRESS / JAX_PROCESS_ID rendezvous)")
@@ -150,7 +152,7 @@ class BaseOptions:
         parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
         parser = self.initialize(parser)
         opt, _ = parser.parse_known_args(argv)
-        unsupported(opt)
+        unsupported(opt, self.isTrain)
 
         # two-stage parse: the selected algorithm adds its own flags
         from dsgan_tpu_torch.models import get_option_setter

@@ -1,4 +1,4 @@
-"""The data axis's collectives and their accounting (port of
+"""The mesh's collectives and their accounting (port of
 ``dsgan_tpu/parallel/comms.py``).
 
 JAX tallies the collectives that XLA's partitioner inserted by parsing
@@ -14,6 +14,13 @@ tally counts eager and captured steps only, as the kernels' launch
 counts do. The host group's control operations (``any_rank``,
 ``barrier``) move no data of the step and are left out of the tally, as
 JAX's HLO count holds only the step's collectives.
+
+Each wrapper runs on the mesh's group of all its ranks unless given
+another (``group``): the spatial axis's row group
+(``Mesh.row_group``) or the data axis's (``Mesh.data_group``). The
+neighbour exchange of image rows (``exchange``, the spatial axis's
+halos) is point-to-point and tallied under the name of the HLO op GSPMD
+emits for it, ``collective-permute``.
 
 A gloo group moves host tensors only; given device tensors (two ranks
 sharing one card, which NCCL refuses) the wrappers copy them through the
@@ -44,17 +51,19 @@ def reset(mesh):
     mesh.stats.clear()
 
 
-def _host(mesh, t):
-    """``t`` where ``mesh.group`` can move it: a host copy under gloo."""
-    return t.cpu() if mesh.gloo and t.is_cuda else t
+def _host(mesh, t, group=None):
+    """``t`` where the group can move it: a host copy under gloo."""
+    gloo = mesh.gloo if group is None else dist.get_backend(group) == "gloo"
+    return t.cpu() if gloo and t.is_cuda else t
 
 
-def all_reduce(t, mesh, average=False):
-    """Sum ``t`` over the data axis in place (then divide by its size with
+def all_reduce(t, mesh, average=False, group=None, op=None):
+    """Sum ``t`` (or reduce it by ``op``) over the mesh's ranks, or over
+    ``group``, in place (then divide by the data axis's size with
     ``average``); returns ``t``."""
     _tally(mesh, "all-reduce", _bytes(t))
-    h = _host(mesh, t)
-    dist.all_reduce(h, group=mesh.group)
+    h = _host(mesh, t, group)
+    dist.all_reduce(h, op=op or dist.ReduceOp.SUM, group=mesh.group if group is None else group)
     if h is not t:
         t.copy_(h)
     if average:
@@ -62,14 +71,40 @@ def all_reduce(t, mesh, average=False):
     return t
 
 
-def all_gather(t, mesh):
-    """The ranks' ``t`` stacked along dim 0 in rank order: (data * n, ...)."""
-    h = _host(mesh, t.contiguous())
-    parts = [torch.empty_like(h) for _ in range(mesh.data)]
-    dist.all_gather(parts, h, group=mesh.group)
-    out = torch.cat(parts).to(t.device)
+def all_gather(t, mesh, group=None, dim=0):
+    """The ranks' ``t`` joined along ``dim`` in rank order, over ``group``
+    (None: the data axis's group, which gives (data * n, ...))."""
+    if group is None:
+        group = mesh.data_group
+    h = _host(mesh, t.contiguous(), group)
+    parts = [torch.empty_like(h) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, h, group=group)
+    out = torch.cat(parts, dim).to(t.device)
     _tally(mesh, "all-gather", _bytes(out))
     return out
+
+
+def exchange(sends, recvs, mesh, group):
+    """Point-to-point transfers within ``group``: each ``(peer, tensor)`` of
+    ``sends`` sent, each ``(peer, buffer)`` of ``recvs`` received into its
+    contiguous buffer (peers are global ranks). Under NCCL one
+    ``batch_isend_irecv`` on the current stream, whose waits hold the
+    stream and not the host. Tallied as one ``collective-permute`` of the
+    bytes this rank receives."""
+    _tally(mesh, "collective-permute", sum(_bytes(b) for _, b in recvs))
+    if not sends and not recvs:
+        return
+    gloo = dist.get_backend(group) == "gloo"
+    staged = [(p, b.new_empty(b.shape, device="cpu") if gloo and b.is_cuda else b)
+              for p, b in recvs]
+    ops = [dist.P2POp(dist.isend, _host(mesh, t.contiguous(), group), p, group)
+           for p, t in sends]
+    ops += [dist.P2POp(dist.irecv, b, p, group) for p, b in staged]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    for (_, b), (_, h) in zip(recvs, staged):
+        if h is not b:
+            b.copy_(h)
 
 
 def broadcast(t, mesh, src=0):
@@ -100,16 +135,18 @@ def barrier(mesh):
 
 class SumOverRanks(torch.autograd.Function):
     """``sum over ranks of x`` with its gradient: the backward sums the
-    cotangent over the ranks too, since every rank's loss reads the sum."""
+    cotangent over the ranks too, since every rank's loss reads the sum.
+    Over the mesh's ranks, or over ``group`` (the spatial axis's row
+    group)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return all_reduce(x.clone(), mesh)
+    def forward(ctx, x, mesh, group=None):
+        ctx.mesh, ctx.group = mesh, group
+        return all_reduce(x.clone(), mesh, group=group)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g.clone(), ctx.mesh), None
+        return all_reduce(g.clone(), ctx.mesh, group=ctx.group), None, None
 
 
 def predict_step_comms_seconds(stats, mesh_shape, bytes_per_s):

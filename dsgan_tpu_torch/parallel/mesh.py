@@ -30,7 +30,20 @@ and CycleGAN steps take G's gradient through ``fake.backward(dfake)`` and
 ``backward(inputs=)``, which DDP's reducer does not follow, and a step
 captured in a CUDA graph holds an explicit NCCL call on its stream.
 
-The spatial axis (image rows over ranks) is ROADMAP.md queue A item 13.
+The spatial axis: rank ``d * spatial + s`` (JAX's ``get_mesh`` order)
+holds rows ``[s * H / S, (s + 1) * H / S)`` of every image of data row
+``d`` (``shard_batch``); the ranks of one data row form its row group,
+those of one ``s`` its data group. The step runs under
+``parallel.spatial.rows(mesh)``, where the windowed ops exchange halo
+rows within the row group and the reductions over H and W sum over it.
+Every loss term and metric a rank reports is then its share, the shares
+of a row group summing to its data row's value, so that one all-reduce
+over all the ranks divided by ``data`` gives the global batch's value,
+and the same all-reduce of the gradients sums a row group's partial
+weight gradients and averages the data rows' (``reduce_gradients``,
+``reduce_metrics``). The spatial axis runs the default recipe (pix2pix,
+MixConvNeXtML or resnet_6/9blocks, the PatchGAN, instance norm);
+``check_spatial_recipe`` refuses the rest, ROADMAP.md queue A item 21.
 """
 
 import dataclasses
@@ -41,23 +54,37 @@ import torch.distributed as dist
 from dsgan_tpu_torch.ops.metrics import psnr_from_mse
 from dsgan_tpu_torch.parallel import comms, multihost
 
+# what the spatial axis runs (the rest is ROADMAP.md queue A item 21)
+SPATIAL_MODELS = ("pix2pix", "test")
+SPATIAL_GENERATORS = ("MixConvNeXtML", "resnet_6blocks", "resnet_9blocks")
+SPATIAL_DISCRIMINATORS = ("basic", "n_layers")
+
 
 @dataclasses.dataclass
 class Mesh:
     """A (data, spatial) mesh of ranks as this rank sees it: ``rank`` is its
-    coordinate on the data axis, ``group`` the data axis's process group
-    (None: the default group), ``host_group`` the gloo group of flags and
-    barriers, ``stats`` the collectives' tally (``comms``)."""
+    coordinate on the data axis and ``row`` on the spatial axis, ``group``
+    the group of all the mesh's ranks (None: the default group),
+    ``data_group`` / ``row_group`` this rank's groups along each axis
+    (a mesh without a spatial axis has neither: its data axis is
+    ``group``),
+    ``row_ranks`` the global ranks of its row group in row order,
+    ``host_group`` the gloo group of flags and barriers, ``stats`` the
+    collectives' tally (``comms``)."""
     data: int
     spatial: int = 1
     rank: int = 0
     group: object = None
     host_group: object = None
     stats: dict = dataclasses.field(default_factory=dict)
+    row: int = 0
+    data_group: object = None
+    row_group: object = None
+    row_ranks: tuple = (0,)
 
     @property
     def gloo(self):
-        """Whether the data axis's group is gloo (which moves host tensors)."""
+        """Whether the mesh's group is gloo (which moves host tensors)."""
         return dist.get_backend(self.group) == "gloo"
 
     @property
@@ -68,6 +95,11 @@ class Mesh:
         """This rank's rows of a global batch of ``n``."""
         per = n // self.data
         return slice(self.rank * per, (self.rank + 1) * per)
+
+    def strip(self, h):
+        """This rank's image rows of a global height ``h``."""
+        per = h // self.spatial
+        return slice(self.row * per, (self.row + 1) * per)
 
 
 def mesh_shape(data_axis=0, spatial_axis=1, batch_size=None, height=None, ranks=1):
@@ -104,13 +136,52 @@ def resolve_mesh(data_axis=0, spatial_axis=1, batch_size=None, height=None):
     data, spatial = mesh_shape(data_axis, spatial_axis, batch_size, height, n)
     if data * spatial == 1:
         return None
-    if spatial > 1:
-        raise NotImplementedError(f"--spatial_axis {spatial} is not ported: spatial sharding is "
-                                  "ROADMAP.md queue A item 13")
-    if data != n:
-        raise ValueError(f"mesh {data}x{spatial} uses {data} of the {n} ranks: start {data} "
-                         f"processes, or give a --batchSize that {n} divides")
-    return Mesh(data, spatial, dist.get_rank(), None, multihost.host_group())
+    if data * spatial != n:
+        raise ValueError(f"mesh {data}x{spatial} uses {data * spatial} of the {n} ranks: start "
+                         f"{data * spatial} processes, or give a --batchSize that {n} divides")
+    rank = dist.get_rank()
+    if spatial == 1:
+        return Mesh(data, spatial, rank, None, multihost.host_group())
+    return _spatial_mesh(data, spatial, rank)
+
+
+def _spatial_mesh(data, spatial, rank):
+    """The (data, spatial) mesh with its row and data groups, every group
+    built on every rank (``dist.new_group`` asks it) and warmed by one
+    all-reduce, so that its first exchange is no rank's first call."""
+    d, s = divmod(rank, spatial)
+    rows = [tuple(range(i * spatial, (i + 1) * spatial)) for i in range(data)]
+    cols = [tuple(range(j, data * spatial, spatial)) for j in range(spatial)]
+    row_groups = [dist.new_group(list(r)) for r in rows]
+    data_groups = [dist.new_group(list(c)) for c in cols]
+    mesh = Mesh(data, spatial, d, None, multihost.host_group(), row=s,
+                data_group=data_groups[s], row_group=row_groups[d], row_ranks=rows[d])
+    dev = torch.device("cuda", torch.cuda.current_device()) if not mesh.gloo else "cpu"
+    for g in (mesh.row_group, mesh.data_group):
+        dist.all_reduce(torch.zeros(1, device=dev), group=g)
+    return mesh
+
+
+def check_spatial_recipe(opt, is_train=False):
+    """Raise unless the options' run is one the spatial axis runs: pix2pix
+    (train, eval, video) on MixConvNeXtML or resnet_6/9blocks, the PatchGAN
+    (``is_train``), instance norm."""
+    if int(getattr(opt, "spatial_axis", 1) or 1) <= 1:
+        return
+    bad = []
+    if getattr(opt, "model", "pix2pix") not in SPATIAL_MODELS:
+        bad.append(f"--model {opt.model}")
+    if getattr(opt, "which_model_netG", "MixConvNeXtML") not in SPATIAL_GENERATORS:
+        bad.append(f"--which_model_netG {opt.which_model_netG}")
+    if is_train and getattr(opt, "which_model_netD", "basic") not in SPATIAL_DISCRIMINATORS:
+        bad.append(f"--which_model_netD {opt.which_model_netD}")
+    if getattr(opt, "norm", "instance") != "instance":
+        bad.append(f"--norm {opt.norm}")
+    if bad:
+        raise NotImplementedError(
+            f"--spatial_axis {opt.spatial_axis} with {', '.join(bad)} is not ported: the spatial "
+            "axis runs pix2pix on MixConvNeXtML or resnet_6/9blocks, the PatchGAN and instance "
+            "norm; the rest is ROADMAP.md queue A item 21")
 
 
 def data_size(mesh):
@@ -118,25 +189,49 @@ def data_size(mesh):
     return 1 if mesh is None else mesh.data
 
 
-def _check_rows(n, mesh, what):
-    if n % mesh.data != 0:
+def _check_rows(n, h, mesh, what):
+    if n % mesh.data != 0 or h % mesh.spatial != 0:
         raise ValueError(
             f"{what} does not tile onto the {mesh.data}x{mesh.spatial} (data x spatial) mesh: "
-            f"N must divide by {mesh.data}. The train loader guarantees full batches "
+            f"N must divide by {mesh.data}" + (f" and H by {mesh.spatial}" if mesh.spatial > 1
+                                                else "")
+            + ". The train loader guarantees full batches "
             "(drop_last); direct model-API drives must feed batches of exactly --batchSize, "
             "or build the model with matching axes.")
 
 
 def shard_batch(batch, mesh):
-    """This rank's rows of an NHWC global batch (numpy or torch)."""
-    _check_rows(batch.shape[0], mesh, f"batch {tuple(batch.shape)}")
-    return batch[mesh.rows(batch.shape[0])]
+    """This rank's rows of an NHWC global batch (numpy or torch), and its
+    strip of their image rows on a spatial axis."""
+    _check_rows(batch.shape[0], batch.shape[1], mesh, f"batch {tuple(batch.shape)}")
+    out = batch[mesh.rows(batch.shape[0])]
+    return out if mesh.spatial == 1 else out[:, mesh.strip(batch.shape[1])]
 
 
 def shard_chunk(chunk, mesh):
-    """This rank's rows of a k-stacked (k, N, H, W, C) chunk."""
-    _check_rows(chunk.shape[1], mesh, f"chunk {tuple(chunk.shape)}")
-    return chunk[:, mesh.rows(chunk.shape[1])]
+    """This rank's rows (and strip) of a k-stacked (k, N, H, W, C) chunk."""
+    _check_rows(chunk.shape[1], chunk.shape[2], mesh, f"chunk {tuple(chunk.shape)}")
+    out = chunk[:, mesh.rows(chunk.shape[1])]
+    return out if mesh.spatial == 1 else out[:, :, mesh.strip(chunk.shape[2])]
+
+
+def gather_image_rows(t, mesh, dim=2):
+    """The row group's strips of ``t`` joined along ``dim`` (the image rows:
+    2 in NCHW, 1 in NHWC); ``t`` itself without a spatial axis. Numpy in,
+    numpy out."""
+    if mesh is None or mesh.spatial == 1:
+        return t
+    host = not isinstance(t, torch.Tensor)
+    x = torch.from_numpy(t) if host else t
+    out = comms.all_gather(x, mesh, group=mesh.row_group, dim=dim)
+    return out.numpy() if host else out
+
+
+def gather_batch(y, mesh):
+    """A whole NHWC batch from this rank's part of it: the strips over the
+    row group, then the rows over the data axis."""
+    y = gather_image_rows(y, mesh, dim=1)
+    return comms.all_gather(y, mesh) if mesh.data > 1 else y
 
 
 def replicate(modules, mesh):
@@ -150,9 +245,11 @@ def replicate(modules, mesh):
 
 
 def reduce_gradients(opt, mesh):
-    """The gradients of ``opt``'s parameters averaged over the data axis:
-    one all-reduce of one flat f32 buffer, in parameter order. A no-op
-    without a mesh."""
+    """The gradients of ``opt``'s parameters summed over the mesh's ranks
+    and divided by the data axis's size: one all-reduce of one flat f32
+    buffer, in parameter order. A row group's gradients are partial sums
+    of its data row's (each rank's loss is its share), so this sums them
+    and averages the data rows. A no-op without a mesh."""
     if mesh is None:
         return
     grads = [p.grad for g in opt.param_groups for p in g["params"] if p.grad is not None]
@@ -164,10 +261,11 @@ def reduce_gradients(opt, mesh):
 
 def reduce_metrics(metrics, mesh, mse=None):
     """A step's 0-d metrics as one process on the global batch reports
-    them, f32 and detached: each averaged over the data axis (one
-    all-reduce of their vector), and with ``mse`` (the uint8 MSE) a
-    ``psnr`` from the averaged MSE (the mean of the ranks' PSNRs is not
-    the PSNR of the batch)."""
+    them, f32 and detached: each summed over the mesh's ranks and divided
+    by the data axis's size (one all-reduce of their vector; a rank's
+    values are its shares on a spatial axis), and with ``mse`` (the uint8
+    MSE) a ``psnr`` from the reduced MSE (the mean of the ranks' PSNRs is
+    not the PSNR of the batch)."""
     metrics = {k: v.detach().float() for k, v in metrics.items()}
     extra = [] if mse is None else [mse.detach().float().reshape(())]
     if mesh is not None:
@@ -183,10 +281,12 @@ def reduce_metrics(metrics, mesh, mse=None):
 
 def query_pool(pool, batch, mesh):
     """``pool.query(batch)`` as one process queries it on the global batch:
-    the ranks' rows gathered, the replicated pool queried with its own
-    draws (equal on every rank), this rank's rows kept, in ``batch``'s
-    memory format."""
-    if mesh is None or pool.pool_size <= 0:
+    the ranks' rows gathered over the data axis, the replicated pool
+    queried with its own draws (equal on every rank), this rank's rows
+    kept, in ``batch``'s memory format. On a spatial axis the pool holds
+    this rank's strip of each image: its draws are per image, so the
+    strips of an image stay together."""
+    if mesh is None or pool.pool_size <= 0 or mesh.data == 1:
         return pool.query(batch)
     out = pool.query(comms.all_gather(batch, mesh))[mesh.rows(batch.shape[0] * mesh.data)]
     cl = batch.dim() == 4 and batch.is_contiguous(memory_format=torch.channels_last)

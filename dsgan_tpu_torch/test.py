@@ -15,7 +15,10 @@ against real_B; ``--model diffusion`` scores a DDIM sample of its
 denoiser (``--sample_steps``, seeded with the checkpoint's step).
 MS-SSIM and the Inception features run on the model's device. Runs on the
 CUDA card; ``--platform cpu`` runs the plain PyTorch path on the CPU. The
-eval runs in one process (``--num_hosts 1``).
+eval runs in one process, or with ``--spatial_axis S`` in S (``--num_hosts
+S``), each running the generator on its strip of the image rows, the
+images joined on every rank and rank 0 alone writing the results, as JAX's
+``_jit_infer`` runs the spatial axis alone for inference.
 """
 
 import csv
@@ -45,9 +48,11 @@ def main(argv=None, dataset_path=None, out_path=None):
     per-image rows, each with its host milliseconds from set_input to the
     saved images."""
     opt = TestOptions().parse(dataset_path, out_path, argv)
-    if multihost.process_count() > 1:
-        raise NotImplementedError("the eval CLI runs in one process: its batches are ragged, "
-                                  "and the data axis shards the training batch only")
+    if multihost.process_count() > max(int(opt.spatial_axis or 1), 1):
+        raise NotImplementedError("the eval CLI runs in one process, or one a strip with "
+                                  "--spatial_axis: its batches are ragged, and the data axis "
+                                  "shards the training batch only")
+    primary = multihost.is_primary()
     opt.nThreads = 1
     opt.serial_batches = True
     opt.no_flip = True
@@ -63,7 +68,8 @@ def main(argv=None, dataset_path=None, out_path=None):
 
     web_dir = os.path.join(opt.results_dir, opt.name, f"{opt.phase}_{opt.which_epoch}")
     webpage = html.HTML(
-        web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, Epoch = {opt.which_epoch}")
+        web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, Epoch = {opt.which_epoch}") \
+        if primary else None
 
     rows = []
     acc_fake = acc_real = None
@@ -92,9 +98,12 @@ def main(argv=None, dataset_path=None, out_path=None):
             if acc_fake is not None:
                 acc_fake.add(fake)
                 acc_real.add(real)
-        save_images(webpage, visuals, data["A_paths"], aspect_ratio=opt.aspect_ratio)
+        if primary:
+            save_images(webpage, visuals, data["A_paths"], aspect_ratio=opt.aspect_ratio)
         row["ms"] = (time.perf_counter() - t0) * 1e3
         rows.append(row)
+    if not primary:
+        return model, rows
     webpage.save()
 
     fid_val = kid_val = kid_std = None

@@ -26,8 +26,9 @@ With --num_hosts N (one process a card) the data axis shards each
 batch of frames, padded to --batchSize, over the ranks
 (``dsgan_tpu/video.py:120-150``): each rank infers its rows, the outputs
 are gathered, and rank 0 scores them and writes ``temporal.csv``; the
-other ranks return None. --spatial_axis above 1 is refused (ROADMAP.md
-queue A item 13).
+other ranks return None. With --spatial_axis S each rank of a row group
+infers its strip of the frames' rows (``parallel.spatial``) and the
+strips are joined before the rows are.
 """
 
 import csv
@@ -105,7 +106,7 @@ def main(argv=None):
     from dsgan_tpu_torch import ops
     from dsgan_tpu_torch.device import platform_device
     from dsgan_tpu_torch.ops import flow as flow_ops
-    from dsgan_tpu_torch.parallel import comms, multihost, resolve_mesh
+    from dsgan_tpu_torch.parallel import gather_batch, multihost, resolve_mesh, spatial
 
     opt = VideoOptions().parse(argv=argv)
     opt.isTrain = False
@@ -126,10 +127,13 @@ def main(argv=None):
             n = len(x)
             if mesh is not None:  # pad to the batch the mesh shards, drop after
                 x = np.concatenate([x, np.zeros((bs - n, h, w, nc), np.float32)])[mesh.rows(bs)]
+                x = x[:, mesh.strip(h)]  # and this rank's image rows
             # the generator casts the f32 frames to its compute dtype
-            y = g(torch.from_numpy(x).to(device).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            with spatial.rows(mesh):
+                y = g(torch.from_numpy(np.ascontiguousarray(x)).to(device).permute(0, 3, 1, 2))
+            y = y.permute(0, 2, 3, 1)
             if mesh is not None:
-                y = comms.all_gather(y.float(), mesh)[:n]
+                y = gather_batch(y.float().contiguous(), mesh)[:n]
             ys.append(y.float().cpu().numpy())
     y = np.concatenate(ys)
     if not multihost.is_primary():

@@ -1,0 +1,188 @@
+"""The spatial axis through the port's CLIs on the CPU (gloo ranks,
+spawned), the counterpart of ``tests/test_parallel.py:138-193``:
+
+  * the train CLI at ``--data_axis 2 --spatial_axis 2`` (4 ranks;
+    resnet_6blocks ngf 8, 32x32, batch 2, f32, a replay pool of 2, the
+    triptych every step) against ``--data_axis 1 --spatial_axis 1`` over
+    the same data order: the epoch-1 checkpoints agree (the parameters,
+    Adam's moments, the pool's images joined from the strips, the step),
+    and rank 0 alone writes files, its triptych joined from the strips;
+  * the train CLI at ``--spatial_axis 2`` on MixConvNeXtML, then the eval
+    CLI and the video CLI at ``--spatial_axis 2`` on its checkpoint against
+    one process: the same ``metrics.csv`` and ``temporal.csv``;
+  * the recipes the spatial axis does not run raise, naming ROADMAP.md
+    item 21.
+"""
+
+import csv
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from dsgan_tpu_torch.parallel import multihost
+from dsgan_tpu_torch.utils import checkpoint as ckpt
+
+SIZE = ["--loadSize_w", "32", "--loadSize_h", "32", "--fineSize_w", "32", "--fineSize_h", "32"]
+COMMON = ["--platform", "cpu", "--dtype", "float32", "--nThreads", "1", "--serial_batches",
+          "--no_flip", "--seed", "7", "--niter", "1", "--niter_decay", "0", "--print_freq", "1",
+          "--batchSize", "2", "--w_vgg", "0"] + SIZE
+RESNET = ["--which_model_netG", "resnet_6blocks", "--ngf", "8", "--ndf", "8", "--no_dropout",
+          "--pool_size", "2"]
+MIX = ["--ndf", "8", "--pool_size", "0"]
+
+
+def _dataset(root, n=4):
+    rng = np.random.default_rng(0)
+    d = root / "data" / "train_all"
+    d.mkdir(parents=True)
+    for pfx in "ab":
+        for i in range(n):
+            Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(
+                d / f"{pfx}_{i}.png")
+    t = root / "data" / "test_all"
+    t.mkdir()
+    for i in range(2):
+        for pfx in "ab":
+            Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(
+                t / f"{pfx}_{i}.png")
+    return str(root / "data")
+
+
+def _train_rank(rank, root, argv):
+    torch.set_num_threads(1)
+    from dsgan_tpu_torch import train
+
+    train.main(argv + ["--checkpoints_dir", f"{root}/ck{rank}", "--name", "s"])
+
+
+def _adam(st, key):
+    """Adam's moments of the weights (a bias whose gradient cancels through
+    an InstanceNorm is rounding noise in one process too)."""
+    return torch.cat([v[k].reshape(-1) for v in st[key]["state"].values()
+                      for k in ("exp_avg", "exp_avg_sq") if v[k].dim() > 1])
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+def test_train_cli_data2_spatial2_matches_one_process(tmp_path):
+    from dsgan_tpu_torch import train
+
+    data = _dataset(tmp_path)
+    argv = ["--dataroot", data] + COMMON + RESNET
+    train.main(argv + ["--data_axis", "1", "--spatial_axis", "1", "--checkpoints_dir",
+                       str(tmp_path / "one"), "--name", "s"])
+    multihost.spawn(_train_rank, 4, (str(tmp_path), argv + [
+        "--num_hosts", "4", "--data_axis", "2", "--spatial_axis", "2"]), timeout=300)
+    want, got = (ckpt.restore_state(str(tmp_path / d / "s"), 1) for d in ("one", "ck0"))
+    assert int(got["step"]) == int(want["step"]) == 2
+    for net in ("netG", "netD"):  # lr 0 in the last epoch of LambdaLR: Adam's moments move
+        for k, w in want[net].items():
+            torch.testing.assert_close(got[net][k], w, rtol=0, atol=1e-6)
+        assert rel_l2(_adam(got, "opt_" + net[-1]), _adam(want, "opt_" + net[-1])) <= 1e-4
+    assert got["pool_images"].shape == want["pool_images"].shape == (2, 6, 32, 32)
+    torch.testing.assert_close(got["pool_images"], want["pool_images"], rtol=1e-4, atol=2e-4)
+    assert got["pool_count"] == want["pool_count"] == 2
+    trip = np.asarray(Image.open(tmp_path / "ck0" / "s" / "train_img" / "train_Re1_2.png"))
+    ref = np.asarray(Image.open(tmp_path / "one" / "s" / "train_img" / "train_Re1_2.png"))
+    assert trip.shape == ref.shape == (32, 96, 3)
+    assert np.abs(trip.astype(int) - ref.astype(int)).max() <= 1
+    rows = [list(csv.reader(open(tmp_path / d / "s" / "each_epoch.csv"))) for d in ("one", "ck0")]
+    np.testing.assert_allclose([float(v) for v in rows[1][0][2:]],
+                               [float(v) for v in rows[0][0][2:]], rtol=1e-3, atol=1e-3)
+    for r in (1, 2, 3):
+        assert not (tmp_path / f"ck{r}").exists(), f"rank {r} wrote files"
+
+
+def _eval_rank(rank, root, train_argv, eval_argv, video_argv):
+    torch.set_num_threads(1)
+    from dsgan_tpu_torch import test, train, video
+
+    train.main(train_argv + ["--checkpoints_dir", f"{root}/ck{rank}"])
+    test.main(eval_argv + ["--results_dir", f"{root}/res{rank}"])
+    video.main(video_argv + ["--results_dir", f"{root}/res{rank}"])
+
+
+def _frames(root):
+    d = root / "frames"
+    d.mkdir()
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32)
+    for t in range(4):
+        img = np.stack([np.sin(0.2 * (xx - 2 * t) + c + 0.1 * yy) for c in (0.0, 1.0, 2.0)], -1)
+        Image.fromarray(((img + 1) * 127.5).astype(np.uint8)).save(d / f"f{t}.png")
+    return str(d)
+
+
+def test_mixconvnext_train_eval_video_on_two_strips(tmp_path):
+    """MixConvNeXtML (K1-K4's plain versions) through the train CLI at
+    ``--spatial_axis 2``, then the eval and video CLIs on its epoch-1
+    checkpoint at ``--spatial_axis 2``, against one process on the one
+    process's checkpoint: the same per-image and mean metrics, the same
+    temporal metrics (a uint8 level off is a pixel of f32 noise)."""
+    from dsgan_tpu_torch import test, train, video
+
+    data, frames = _dataset(tmp_path), _frames(tmp_path)
+    train_argv = ["--dataroot", data, "--name", "m"] + COMMON + MIX
+    tail = ["--name", "m", "--which_epoch", "1", "--platform", "cpu", "--dtype", "float32"] + SIZE
+    eval_argv = ["--dataroot", data, "--how_many", "2"] + tail
+    video_argv = ["--dataroot", frames, "--batchSize", "2", "--no_flow_metric"] + tail
+    train.main(train_argv + ["--checkpoints_dir", str(tmp_path / "one")])
+    test.main(eval_argv + ["--checkpoints_dir", str(tmp_path / "one"), "--results_dir",
+                           str(tmp_path / "res_one")])
+    video.main(video_argv + ["--checkpoints_dir", str(tmp_path / "one"), "--results_dir",
+                             str(tmp_path / "res_one")])
+    multihost.spawn(_eval_rank, 2, (
+        str(tmp_path), train_argv + ["--num_hosts", "2", "--spatial_axis", "2"],
+        eval_argv + ["--num_hosts", "2", "--spatial_axis", "2", "--checkpoints_dir",
+                     str(tmp_path / "ck0")],
+        video_argv + ["--num_hosts", "2", "--spatial_axis", "2", "--checkpoints_dir",
+                      str(tmp_path / "ck0")]), timeout=300)
+    want, got = (ckpt.restore_state(str(tmp_path / d / "m"), 1) for d in ("one", "ck0"))
+    assert rel_l2(_adam(got, "opt_G"), _adam(want, "opt_G")) <= 1e-4
+    table = [list(csv.reader(open(tmp_path / d / "m" / "test_all" / "_1" / "metrics.csv")))
+             for d in ("res_one", "res0")]
+    assert [r[:2] for r in table[0]] == [r[:2] for r in table[1]] and len(table[0]) == 4
+    for a, b in zip(table[0][1:], table[1][1:]):
+        np.testing.assert_allclose([float(b[2]), float(b[3])], [float(a[2]), float(a[3])],
+                                   rtol=1e-3, atol=1e-3)
+    temporal = [(tmp_path / d / "m" / "video" / "temporal.csv").read_text().splitlines()
+                for d in ("res_one", "res0")]
+    assert len(temporal[0]) == len(temporal[1])
+    for a, b in zip(temporal[0][1:], temporal[1][1:]):
+        if a:
+            np.testing.assert_allclose([float(v) for v in b.split(",")[1:]],
+                                       [float(v) for v in a.split(",")[1:]], rtol=1e-3,
+                                       atol=1e-5)
+    assert not (tmp_path / "res1").exists() and not (tmp_path / "ck1").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "cycle_gan", "--dataset_mode", "unaligned"],
+    ["--model", "diffusion"],
+    ["--which_model_netG", "unet_128"],
+    ["--which_model_netD", "multi"],
+    ["--norm", "batch", "--which_model_netG", "resnet_6blocks"],
+    ["--norm", "none", "--which_model_netG", "resnet_9blocks"],
+], ids=lambda v: "_".join(a.lstrip("-") for a in v))
+def test_item_21_recipes_raise(tmp_path, argv):
+    from dsgan_tpu_torch.options.train_options import TrainOptions
+
+    with pytest.raises(NotImplementedError, match="item 21"):
+        TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--spatial_axis", "2"]
+                             + argv)
+
+
+def test_the_default_recipe_parses_on_the_spatial_axis(tmp_path):
+    from dsgan_tpu_torch.options.test_options import TestOptions
+    from dsgan_tpu_torch.options.train_options import TrainOptions
+
+    for which in ("MixConvNeXtML", "resnet_6blocks", "resnet_9blocks"):
+        opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--spatial_axis",
+                                         "2", "--data_axis", "2", "--which_model_netG", which])
+        assert (opt.spatial_axis, opt.which_model_netG) == (2, which)
+    # eval builds no D: its flag does not matter there
+    assert TestOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--spatial_axis", "2",
+                                     "--which_model_netD", "multi"]).spatial_axis == 2
