@@ -105,12 +105,18 @@ Phases, each of which fails the run:
      the floor's: one process summing over the two row halves as the
      strips do), then bf16 on the Hopper kernels without and with VGG
      (ranks bit-identical, step ms beside one process's, the tally); 5 K1
-     + 4 K3 + 5 K2 + 4 K4 a rank a step on the strips' rows (``spatial_*``
-     lines);
+     + 4 K3 + 5 K2 + 4 K4 a rank a step on the strips' rows; then the same
+     f32 gate and bf16 runs for CycleGAN (two full-width MixConvNeXtML,
+     30 K1 + 24 K3 + 30 K2 + 24 K4 a rank a step), diffusion (nf 64, with
+     a 20-step DDIM sample on the strips) and resnet_9blocks under --norm
+     batch (``SP_RECIPES``; ``spatial_*`` lines);
  15. a step that cannot be captured must raise, not run eagerly;
  16. one JSON line of kernel numbers, then the result line.
 
 ``--out DIR`` also writes the per-shape numbers to DIR/chip_smoke.json.
+``--grad_spread N`` runs only one process's f32 first step at the spatial
+phase's config N times for each of its recipes and prints each weight's
+spread beside the halves' reading the spatial gate doubles (``grad_spread``).
 """
 
 import argparse
@@ -225,13 +231,35 @@ FAULTS = ("rows", "sum", "tv")
 # against their plain versions at the strips' shapes.
 SPATIAL = dict(size=512, batch=1, steps=2, timed=3, grad=1e-4, noise=2.0,
                losses=((2e-5, 1e-6), (2e-4, 1e-5)),
-               keys=("loss_G", "loss_D", "loss_G_L1", "loss_ssim", "loss_tv"))
+               keys=("loss_G", "loss_D", "loss_G_L1", "loss_ssim", "loss_tv"), pool=50, ddim=20)
+# The other recipes on the same two ranks at the same size and batch, at full
+# width (``_sp_recipe``): CycleGAN (two MixConvNeXtML, PatchGAN ndf 32,
+# lambda_identity 0.5, LSGAN; f32 pool 0, bf16 pools of SPATIAL["pool"] full
+# from the start, so that every query draws), diffusion (DenoiseUNet nf 64,
+# T 1000; the bf16 run also draws a DDIM sample of SPATIAL["ddim"] steps on
+# the strips) and resnet_9blocks ngf 64 under --norm batch against the
+# PatchGAN ndf 32 with BatchNorm (D on the fake and the real batch apart).
+# f32 takes SP_STEPS[False] steps, bf16 SP_STEPS[True]; each f32 run is
+# held by ``sp_gate`` on its SP_GATE_KEYS.
+SP_RECIPES = ("cycle_gan", "diffusion", "norm_batch")
+SP_STEPS = {False: 1, True: 2}
+SP_GATE_KEYS = {"pix2pix": SPATIAL["keys"],
+                "cycle_gan": ("loss_G", "loss_G_A", "loss_cycle_A", "loss_idt_A", "loss_tv",
+                              "loss_D_A", "loss_D_B"),
+                "diffusion": ("loss_G",),
+                "norm_batch": ("loss_G", "loss_D", "loss_G_L1", "loss_ssim", "loss_tv")}
 # planted spatial-axis faults, each in the ranks alone: the halo rows zeroed;
 # the InstanceNorm statistics of the strip alone; K2's / K4's S sums not
 # summed over the row group; the fold dividing by the strip's H * W; the
 # gradients divided by all the ranks (averaged over the row group too; with
-# one data row a sum over the data axis is its mean)
-SPATIAL_FAULTS = ("halo", "stats", "sums", "fold", "grads")
+# one data row a sum over the data axis is its mean); BatchNorm counting its
+# strip's rows (times the data axis alone); diffusion's eps drawn per strip
+# (a strip-sized draw); each rank's pool drawing on its own (the bf16 ranks
+# no longer identical). RECIPE_FAULTS: the recipes each is planted in.
+SPATIAL_FAULTS = ("halo", "stats", "sums", "fold", "grads", "bn_count", "eps", "pool")
+RECIPE_FAULTS = {"halo": ("pix2pix",) + SP_RECIPES, "stats": ("pix2pix",),
+                 "sums": ("pix2pix",), "fold": ("pix2pix",), "grads": ("pix2pix",) + SP_RECIPES,
+                 "bn_count": ("norm_batch",), "eps": ("diffusion",), "pool": ("cycle_gan",)}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores (the f32 kernel's FMA path).
 HBM_BPS = 3.35e12
@@ -2300,10 +2328,13 @@ def dp_phase(torch, np, bc, card, faults=()):
 
 
 def _sp_plant(fault):
-    """Plant one of SPATIAL_FAULTS in this process's spatial-axis step."""
+    """Plant one of SPATIAL_FAULTS in this process's spatial-axis steps."""
+    import torch
+
     from dsgan_tpu_torch.kernels import block_core as bc
-    from dsgan_tpu_torch.models import pix2pix
+    from dsgan_tpu_torch.models import cycle_gan, diffusion, layers, pix2pix
     from dsgan_tpu_torch.ops import norm
+    from dsgan_tpu_torch.parallel import comms
     from dsgan_tpu_torch.parallel import mesh as mesh_mod
     from dsgan_tpu_torch.parallel import spatial
 
@@ -2315,7 +2346,6 @@ def _sp_plant(fault):
         bc._reduce_s = lambda rows, *sums: sums
     elif fault == "fold":
         bc._fold_hw = lambda rows, h: None
-
     elif fault == "grads":
         def averaged(opt, mesh):
             mesh_mod.reduce_gradients(opt, mesh)
@@ -2323,7 +2353,26 @@ def _sp_plant(fault):
                 for prm in g["params"]:
                     if prm.grad is not None:
                         prm.grad.div_(mesh.spatial)
-        pix2pix.reduce_gradients = averaged
+        for mod in (pix2pix, cycle_gan, diffusion):
+            mod.reduce_gradients = averaged
+    elif fault == "bn_count":
+        def strip_count(self, xf):  # the strip's B * H * W times the data axis alone
+            n = xf.numel() // xf.shape[1] * self.mesh.data
+            mean = comms.SumOverRanks.apply(xf.sum(dim=(0, 2, 3)), self.mesh) / n
+            sq = (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3))
+            return mean, comms.SumOverRanks.apply(sq, self.mesh) / n, n
+        layers.BatchNorm2d._stats = strip_count
+    elif fault == "eps":
+        def strip_noise(shape, mesh, generator, device):  # the strip's shape, drawn per strip
+            total, rows = diffusion._rows(shape[0], mesh)
+            return torch.randn((total, *shape[1:]), generator=generator, device=device)[rows]
+        diffusion._noise = strip_noise
+    elif fault == "pool":
+        class PerRank(cycle_gan.ImagePool):  # each rank's pool its own draws
+            def __init__(self, pool_size, shape, dtype, device, seed):
+                super().__init__(pool_size, shape, dtype, device,
+                                 seed + 1000 * (1 + torch.distributed.get_rank()))
+        cycle_gan.ImagePool = PerRank
     elif fault is not None:
         fail(f"spatial: no planted fault {fault!r}: {SPATIAL_FAULTS}")
 
@@ -2343,16 +2392,19 @@ def _sp_batches(np):
 
 
 def _row_halves(torch, bc):
-    """Patches that sum, in one process, the InstanceNorm sums of x and x^2
-    and K2's / K4's S sums and weight gradients over the image's two row
-    halves, as two strips sum them (each half's sum, then the two added); a
-    level of odd height, which the strips gather, stays whole. For the
-    comparison only: the port has no such switch."""
+    """Patches that sum, in one process, the InstanceNorm sums of x and x^2,
+    K2's / K4's S sums and weight gradients and BatchNorm's sums of x and
+    (x - mean)^2 over the image's two row halves, as two strips sum them
+    (each half's sum, then the two added); a level of odd height, which the
+    strips gather, stays whole. For the comparison only: the port has no
+    such switch."""
     from unittest import mock
 
+    from dsgan_tpu_torch.models import layers
     from dsgan_tpu_torch.ops import norm
 
     moments, bwd, bwd2 = norm.global_moments, bc.block_core_bwd, bc.block_core2_bwd
+    bn_stats = layers.BatchNorm2d._stats
 
     def halves(t):
         h = t.shape[2] // 2
@@ -2366,6 +2418,14 @@ def _row_halves(torch, bc):
                 for t in halves(xf))
         n = xf.shape[2] * xf.shape[3]
         return s[0] / n, s[1] / n
+
+    def split_bn(self, xf):
+        if self.mesh is not None or xf.shape[2] % 2:
+            return bn_stats(self, xf)
+        n = xf.numel() // xf.shape[1]
+        mean = sum(t.sum(dim=(0, 2, 3)) for t in halves(xf)) / n
+        sq = sum((t - mean[:, None, None]).square().sum(dim=(0, 2, 3)) for t in halves(xf))
+        return mean, sq / n, n
 
     def split(fn, parts):
         """``fn`` (K2 / K4, whose ``parts`` leading inputs and cotangent are
@@ -2381,24 +2441,47 @@ def _row_halves(torch, bc):
         return run
 
     return [mock.patch.object(norm, "global_moments", split_moments),
+            mock.patch.object(layers.BatchNorm2d, "_stats", split_bn),
             mock.patch.object(bc, "block_core_bwd", split(bwd, 2)),
             mock.patch.object(bc, "block_core2_bwd", split(bwd2, 4))]
 
 
-def _sp_run(torch, np, bc, mesh, dtype, use_vgg=False, timed=True, halves=False):
-    """``_sp_steps``; ``halves``: one process summing over the two row
-    halves (``_row_halves``)."""
+def _sp_run(torch, np, bc, mesh, recipe, dtype, use_vgg=False, timed=True, halves=False,
+            steps=None, deterministic=None):
+    """One run of a recipe (``SP_RECIPES``): ``_sp_steps`` for pix2pix,
+    ``_sp_recipe_steps`` for the others; ``halves``: one process summing
+    over the two row halves (``_row_halves``); ``deterministic``: cuDNN's
+    deterministic algorithms (None: for the f32 runs, which the gate reads,
+    so that one process's gradients repeat from run to run; under the
+    default algorithms they do not, ``grad_spread``). Adds the run's
+    seconds."""
     patches = _row_halves(torch, bc) if halves else []
+    if deterministic is None:
+        deterministic = dtype == torch.float32
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    t0 = time.perf_counter()
     for p in patches:
         p.start()
     try:
-        return _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed)
+        if recipe == "pix2pix":
+            run = _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed, steps)
+        else:
+            run = _sp_recipe_steps(torch, np, bc, mesh, recipe, dtype, steps)
     finally:
         for p in patches:
             p.stop()
+        torch.backends.cudnn.deterministic = saved
+    torch.cuda.synchronize()
+    return dict(run, seconds=time.perf_counter() - t0, cudnn_deterministic=deterministic)
 
 
-def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed):
+def _nets_state(nets):
+    return {n: {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()}
+            for n, net in nets.items()}
+
+
+def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed, steps=None):
     """The spatial recipe's gated steps, then (``timed``) its timed steps,
     on this rank's strip (the whole image without a mesh), from the state
     built from seed 0, in ``dtype`` (f32: the FMA check builds, erf GELU;
@@ -2434,7 +2517,7 @@ def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(bc)
     metrics, grads, tally = [], None, None
-    for a, b in batches[:SPATIAL["steps"]]:
+    for a, b in batches[:steps or SPATIAL["steps"]]:
         if mesh is not None:
             comms.reset(mesh)
         m, _ = step(state, a, b, lr)
@@ -2453,18 +2536,138 @@ def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed):
             step(state, a, b, lr)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) / SPATIAL["timed"] * 1e3
-    params = {n: {k: v.detach().to("cpu", copy=True) for k, v in net.state_dict().items()}
-              for n, net in (("netG", G), ("netD", D))}
     return dict(metrics=metrics, grads=grads, launches=launches, block_inputs=seen, tally=tally,
-                step_ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, params=params)
+                step_ms=ms, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                params=_nets_state({"netG": G, "netD": D}))
 
 
-SP_RUNS = (("f32", False), ("bf16", False), ("bf16", True))
+def _fill_pools(torch, state, mesh):
+    """Both CycleGAN pools full from the start, of seeded whole images (this
+    rank's strip of them), so that every query draws its coins and indices."""
+    dev = state.pool_A.images.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    s = mesh.spatial if mesh is not None else 1
+    for pool in (state.pool_A, state.pool_B):
+        n, c, h, w = pool.images.shape
+        whole = torch.rand((n, c, h * s, w), generator=gen, device=dev) * 2 - 1
+        pool.images.copy_(whole if mesh is None else whole[:, :, mesh.strip(h * s)])
+        pool.count = pool.pool_size
+
+
+def _sp_recipe(torch, recipe, mesh, dtype):
+    """One of SP_RECIPES at full width on the card, built from seed 0 on
+    this rank's strip (the whole image without a mesh), in ``dtype`` (f32:
+    its pools empty, 0 images; bf16: CycleGAN's pools of SPATIAL["pool"],
+    full): (state, step returning (metrics, out), {name: network})."""
+    from dsgan_tpu_torch.models import cycle_gan, define_D, define_G, diffusion, pix2pix
+    from dsgan_tpu_torch.models.layers import set_batchnorm_mesh
+
+    dev, size = torch.device("cuda"), SPATIAL["size"]
+    rows = size // (mesh.spatial if mesh is not None else 1)
+    bf16 = dtype == torch.bfloat16
+    if recipe == "cycle_gan":
+        cfg = cycle_gan.CycleGANConfig(pool_size=SPATIAL["pool"] if bf16 else 0,
+                                       lambda_identity=0.5)
+        nets = [define_G(3, 3, 32, "MixConvNeXtML", dtype=dtype, device=dev, seed=i, train=True)
+                for i in range(2)]
+        nets += [define_D(3, 32, "basic", dtype=dtype, device=dev, seed=2 + i) for i in range(2)]
+        state = cycle_gan.init_state(*nets, cfg, (rows, size), seed=0)
+        if bf16:
+            _fill_pools(torch, state, mesh)
+        return state, cycle_gan.make_cyclegan_step(cfg, mesh), dict(zip(cycle_gan.NETS, nets))
+    if recipe == "diffusion":
+        net = diffusion.define_denoiser(3, 3, DIFF["nf"], dtype, dev, seed=0)
+        cfg = diffusion.DiffusionConfig(timesteps=DIFF["timesteps"],
+                                        compute_dtype=dtype if bf16 else None)
+        step = diffusion.make_diffusion_train_step(cfg, mesh)
+        return (diffusion.init_state(net, cfg, seed=0),
+                lambda s, a, b, lr: (step(s, a, b, lr), None), {"net": net})
+    if recipe != "norm_batch":
+        fail(f"spatial: no recipe {recipe!r}")
+    G = define_G(3, 3, 64, "resnet_9blocks", norm="batch", dtype=dtype, device=dev, seed=0,
+                 train=True)
+    D = define_D(6, 32, "basic", norm="batch", dtype=dtype, device=dev, seed=1)
+    cfg = pix2pix.Pix2PixConfig(pool_size=0, use_vgg=False, w_vgg=0.0,
+                                compute_dtype=dtype if bf16 else None, fuse_d_batch=False)
+    state = pix2pix.init_state(G, D, None, cfg, (rows, size), seed=0)
+    if mesh is not None:
+        for net in (G, D):
+            set_batchnorm_mesh(net, mesh)
+    return state, pix2pix.make_train_step(cfg, mesh), {"netG": G, "netD": D}
+
+
+def _sp_recipe_steps(torch, np, bc, mesh, recipe, dtype, steps=None):
+    """A recipe's steps (f32 1, bf16 2: SP_STEPS) on pairs 0 and 1 of
+    ``_sp_batches`` on this rank's strip, each timed alone: the metrics,
+    the first step's gradients, the launch counts, the tally of a step,
+    each step's ms, the peak memory, the networks' states and the draws'
+    generators (what the ranks must hold alike); the bf16 diffusion run
+    then draws one DDIM sample of SPATIAL["ddim"] steps on the strip."""
+    from dsgan_tpu_torch.models import diffusion
+    from dsgan_tpu_torch.parallel import comms, shard_batch
+
+    dev, lr = torch.device("cuda"), 2e-4
+    steps = steps or SP_STEPS[dtype == torch.bfloat16]
+    state, step, nets = _sp_recipe(torch, recipe, mesh, dtype)
+    pairs = _sp_batches(np)
+    batches = [[torch.from_numpy(np.ascontiguousarray(shard_batch(x, mesh) if mesh else x))
+                .to(dev) for x in ab] for ab in (pairs[0], pairs[SPATIAL["steps"]])][:steps]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(bc)
+    metrics, grads, tally, ms = [], None, None, []
+    for a, b in batches:
+        if mesh is not None:
+            comms.reset(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, _ = step(state, a, b, lr)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if mesh is not None:
+            tally = comms.collective_stats(mesh)
+        if grads is None:
+            grads = {n: {k: q.grad.float().cpu() for k, q in net.named_parameters()
+                         if q.grad is not None} for n, net in nets.items()}
+    launches = read_counts(bc)
+    params = _nets_state(nets)
+    gens = [getattr(state, g) for g in ("pool_A", "pool_B") if hasattr(state, g)]
+    params["draws"] = {f"generator{i}": g.generator.get_state() for i, g in enumerate(gens)}
+    params["draws"].update({f"count{i}": torch.tensor(g.count) for i, g in enumerate(gens)})
+    if recipe == "diffusion":
+        params["draws"]["generator"] = state.generator.get_state()
+    run = dict(metrics=metrics, grads=grads, launches=launches, tally=tally, step_ms=ms,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, params=params)
+    if recipe == "diffusion" and dtype == torch.bfloat16:
+        sampler = diffusion.make_ddim_sampler(
+            diffusion.DiffusionConfig(timesteps=DIFF["timesteps"]), SPATIAL["ddim"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = sampler(state.net, batches[0][0], generator=torch.Generator(device=dev).manual_seed(5),
+                    mesh=mesh)
+        torch.cuda.synchronize()
+        run.update(sample=x.cpu(), sample_ms=(time.perf_counter() - t0) * 1e3)
+    return run
+
+
+def _sp_keys(fault=None):
+    """The runs a spatial rank makes, (key, recipe, dtype name, VGG): every
+    run clean; with ``fault`` the f32 runs of the recipes it is planted in
+    (``RECIPE_FAULTS``), and CycleGAN's bf16 run for the pool's."""
+    runs = [("f32", "pix2pix", "f32", False), ("bf16", "pix2pix", "bf16", False),
+            ("bf16_vgg", "pix2pix", "bf16", True)]
+    runs += [(f"{r}_{d}", r, d, False) for r in SP_RECIPES for d in ("f32", "bf16")]
+    if fault is None:
+        return runs
+    if fault == "pool":
+        return [k for k in runs if k[0] == "cycle_gan_bf16"]
+    return [k for k in runs if k[2] == "f32" and k[1] in RECIPE_FAULTS[fault]]
 
 
 def _sp_rank(rank, out, fault=None):
     """A spatial rank: data 1 x spatial 2, gloo, the card shared; with
-    ``fault`` the f32 run alone, that fault planted."""
+    ``fault`` the runs of ``_sp_keys(fault)`` alone, that fault planted."""
     import numpy as np
     import torch
 
@@ -2475,10 +2678,10 @@ def _sp_rank(rank, out, fault=None):
     _sp_plant(fault)
     mesh = resolve_mesh(1, 2, batch_size=SPATIAL["batch"], height=SPATIAL["size"])
     runs = {}
-    for name, vgg in SP_RUNS[:1] if fault else SP_RUNS:
-        dtype = torch.float32 if name == "f32" else torch.bfloat16
-        runs[f"{name}{'_vgg' if vgg else ''}"] = _sp_run(torch, np, bc, mesh, dtype, vgg,
-                                                         timed=fault is None and name != "f32")
+    for key, recipe, dname, vgg in _sp_keys(fault):
+        dtype = torch.float32 if dname == "f32" else torch.bfloat16
+        runs[key] = _sp_run(torch, np, bc, mesh, recipe, dtype, vgg,
+                            timed=fault is None and dname != "f32")
         torch.cuda.empty_cache()
     torch.save(runs, os.path.join(out, f"rank{rank}.pt"))
 
@@ -2487,7 +2690,7 @@ def _sp_grads(torch, run, ref):
     """Per net: each weight's first-step gradient's rel-L2 against ``ref``'s,
     and over all its weights."""
     out = {}
-    for n in ("netG", "netD"):
+    for n in ref["grads"]:
         keys = [k for k, v in ref["grads"][n].items() if v.dim() > 1]
         each = {k: rel_l2(run["grads"][n][k], ref["grads"][n][k]) for k in keys}
         every = rel_l2(torch.cat([run["grads"][n][k].reshape(-1) for k in keys]),
@@ -2496,18 +2699,18 @@ def _sp_grads(torch, run, ref):
     return out
 
 
-def sp_gate(torch, run, one, floor):
+def sp_gate(torch, run, one, floor, keys=SPATIAL["keys"]):
     """A rank's f32 run against one process's (``one``): each gated loss's
-    difference beside its bound (SPATIAL["losses"]); each weight's
-    first-step gradient's rel-L2, and each net's over all its weights,
-    beside SPATIAL["grad"] or SPATIAL["noise"] times the halves' run's
-    (``floor``) reading where that is larger. The table holds each net's
-    weight nearest its limit, all its weights, and every reading over its
-    limit. Returns (table, the readings over their limits)."""
+    (``keys``) difference beside its bound (SPATIAL["losses"]); each
+    weight's first-step gradient's rel-L2, and each net's over all its
+    weights, beside SPATIAL["grad"] or SPATIAL["noise"] times the halves'
+    run's (``floor``) reading where that is larger. The table holds each
+    net's weight nearest its limit, all its weights, and every reading over
+    its limit. Returns (table, the readings over their limits)."""
     table, over = {}, []
     for i, (g, w) in enumerate(zip(run["metrics"], one["metrics"])):
         rtol, atol = SPATIAL["losses"][i]
-        for key in SPATIAL["keys"]:
+        for key in keys:
             d, limit = abs(g[key] - w[key]), atol + rtol * abs(w[key])
             table[f"{key}_step{i + 1}"] = dict(got=d, limit=limit)
             if not d <= limit:
@@ -2556,95 +2759,222 @@ def _sp_sites():
                  for sites in (K1_SITES, K3_SITES))
 
 
+def _identical(torch, r0, r1):
+    """Whether two ranks' runs hold the same metrics and state, bit for bit."""
+    return r0["metrics"] == r1["metrics"] and all(
+        torch.equal(r0["params"][n][k], r1["params"][n][k])
+        for n in r0["params"] for k in r0["params"][n])
+
+
+def _sp_per(key):
+    """K1-K4 launches a step of a run (``_sp_keys``): pix2pix's 5/4/5/4,
+    CycleGAN's CYCLE_PER_STEP, none for diffusion and resnet_9blocks."""
+    if key in ("f32", "bf16", "bf16_vgg"):
+        return {"K1": 5, "K3": 4, "K2": 5, "K4": 4}
+    return CYCLE_PER_STEP if key.startswith("cycle_gan") else {k: 0 for k in CYCLE_PER_STEP}
+
+
+def _sp_gates(torch, runs, one, halves):
+    """Each recipe's f32 gate (``sp_gate``) on a rank's ``runs``: {recipe:
+    (table, over)}."""
+    out = {}
+    for recipe in ("pix2pix",) + SP_RECIPES:
+        key = "f32" if recipe == "pix2pix" else f"{recipe}_f32"
+        if key in runs:
+            out[recipe] = sp_gate(torch, runs[key], one[key], halves[recipe],
+                                  SP_GATE_KEYS[recipe])
+    return out
+
+
 def spatial_phase(torch, np, bc, card, faults=()):
     """The spatial axis (``parallel.spatial``) on the one card: two gloo ranks
     (data 1 x spatial 2), spawned, each holding 256 of the 512 image rows.
     First K1-K4 (bf16, the Hopper kernels) against their plain versions at
-    the strips' shapes (``_sp_sites``). (a) f32 on the FMA check builds:
-    the ranks against one process and the halves' run at ``sp_gate``'s
-    bounds, 5 K1 + 4 K3 + 5 K2 + 4 K4 launches a rank a step, every
-    ConvNeXt block on its strip's rows. (b) bf16 on the Hopper kernels,
-    without and with VGG: the ranks bit-identical, the launches, a rank's
-    step ms beside one process's, the tally of a step. With ``faults``
-    (``--spatial_faults``): (a) clean, then with each of SPATIAL_FAULTS
-    planted in the ranks, which the gate must fail."""
+    the strips' shapes (``_sp_sites``). Then four recipes (pix2pix on
+    MixConvNeXtML, and SP_RECIPES: CycleGAN, diffusion, resnet_9blocks
+    under ``--norm batch``), each (a) f32 on the FMA check builds: the
+    ranks against one process and the halves' run at ``sp_gate``'s bounds,
+    K1-K4's launches a rank a step; (b) bf16 on the Hopper kernels (pix2pix
+    without and with VGG): the ranks bit-identical, the launches, a rank's
+    step ms and peak memory beside one process's, the tally of a step with
+    its halo bytes; diffusion's bf16 run also a DDIM sample on the strips.
+    With ``faults`` (``--spatial_faults``): (a) clean, then with each of
+    SPATIAL_FAULTS planted in the ranks (``_sp_keys``), which the gates of
+    the recipes it is planted in must fail (the pool's: the bf16 ranks no
+    longer identical)."""
     from dsgan_tpu_torch.ops import instance_stats
 
-    per = {"K1": 5, "K3": 4, "K2": 5, "K4": 4}
     kernel_rows = (check_kernels(torch, bc, instance_stats, SPATIAL["batch"], torch.bfloat16,
                                  "tanh", TOL_BF16, 3, sites=_sp_sites())
                    + check_backward(torch, bc, instance_stats, SPATIAL["batch"], torch.bfloat16,
                                     "tanh", 3, sites=_sp_sites()))
-    one = {}
-    for name, vgg in SP_RUNS[:1] if faults else SP_RUNS:
+    one, halves = {}, {}
+    keys = [k for k in _sp_keys() if not faults or k[2] == "f32"]
+    for key, recipe, dname, vgg in keys:
         torch.cuda.empty_cache()
-        key = f"{name}{'_vgg' if vgg else ''}"
-        dtype = torch.float32 if name == "f32" else torch.bfloat16
-        one[key] = _sp_run(torch, np, bc, None, dtype, vgg, timed=name != "f32")
+        dtype = torch.float32 if dname == "f32" else torch.bfloat16
+        one[key] = _sp_run(torch, np, bc, None, recipe, dtype, vgg, timed=dname != "f32")
+        if dname == "f32":
+            torch.cuda.empty_cache()
+            halves[recipe] = _sp_run(torch, np, bc, None, recipe, dtype, timed=False,
+                                     halves=True)
     torch.cuda.empty_cache()
-    split = _sp_run(torch, np, bc, None, torch.float32, timed=False, halves=True)
-    torch.cuda.empty_cache()
+    planted = {}
     with tempfile.TemporaryDirectory(prefix="dsgan_sp_") as tmp:
         ranks, spawn_s = _sp_spawn(torch, tmp)
-        planted = {}
         for fault in faults:
-            runs, _ = _sp_spawn(torch, tmp, fault)
-            table, over = sp_gate(torch, runs[0]["f32"], one["f32"], split)
-            planted[fault] = dict(over=len(over), first={k: table[k]["got"] for k in over[:6]})
-    gate, over = sp_gate(torch, ranks[0]["f32"], one["f32"], split)
+            runs, fault_s = _sp_spawn(torch, tmp, fault)
+            if fault == "pool":
+                same = _identical(torch, runs[0]["cycle_gan_bf16"], runs[1]["cycle_gan_bf16"])
+                planted[fault] = dict(cycle_gan=dict(over=int(not same), ranks_identical=same),
+                                      seconds=fault_s)
+                continue
+            planted[fault] = {recipe: dict(over=len(over),
+                                           first={k: table[k]["got"] for k in over[:4]})
+                              for recipe, (table, over) in
+                              _sp_gates(torch, runs[0], one, halves).items()}
+            planted[fault]["seconds"] = fault_s
+    gates = _sp_gates(torch, ranks[0], one, halves)
     # ungated: the worst weight and all weights, the ranks' against one
     # process and against the halves' run, the halves' against one process
-    distances = {f"{a}_vs_{b}_{n}": (max(each, key=each.get), max(each.values()), every)
-                 for a, run, b, ref in (("ranks", ranks[0]["f32"], "one", one["f32"]),
-                                        ("ranks", ranks[0]["f32"], "halves", split),
-                                        ("halves", split, "one", one["f32"]))
-                 for n, (each, every) in _sp_grads(torch, run, ref).items()}
+    distances = {}
+    for recipe in gates:
+        key = "f32" if recipe == "pix2pix" else f"{recipe}_f32"
+        for a, run, b, ref in (("ranks", ranks[0][key], "one", one[key]),
+                               ("ranks", ranks[0][key], "halves", halves[recipe]),
+                               ("halves", halves[recipe], "one", one[key])):
+            for n, (each, every) in _sp_grads(torch, run, ref).items():
+                distances[f"{recipe}_{a}_vs_{b}_{n}"] = (max(each, key=each.get),
+                                                         max(each.values()), every)
     res = dict(card=card, size=SPATIAL["size"], batch=SPATIAL["batch"], mesh=[1, 2],
-               f32_gate=gate, over=over, spawn_s=spawn_s, runs={}, distances=distances,
-               kernel_rows=kernel_rows)
-    problems = [f"f32 gate: {k} {gate[k]}" for k in over]
-    launches = {k: 0 for k in per}
-    for key in one:
+               gates={r: dict(gate=t, over=o) for r, (t, o) in gates.items()},
+               spawn_s=spawn_s, runs={}, distances=distances, kernel_rows=kernel_rows,
+               seconds={k: dict(one_process=one[k]["seconds"], rank0=ranks[0][k]["seconds"],
+                                rank1=ranks[1][k]["seconds"]) for k in one})
+    problems = [f"{r} f32 gate: {k} {t[k]}" for r, (t, o) in gates.items() for k in o]
+    launches = {k: 0 for k in CYCLE_PER_STEP}
+    for key, recipe, dname, _ in keys:
         r0, r1 = ranks[0][key], ranks[1][key]
-        same = r0["metrics"] == r1["metrics"] and all(
-            torch.equal(r0["params"][n][k], r1["params"][n][k])
-            for n in r0["params"] for k in r0["params"][n])
+        same = _identical(torch, r0, r1)
         run = dict(ranks_identical=same, launches=[r0["launches"], r1["launches"]],
-                   one_process_launches=one[key]["launches"],
-                   block_inputs=r0["block_inputs"], tally=r0["tally"],
+                   one_process_launches=one[key]["launches"], tally=r0["tally"],
                    step_ms=dict(one_process=one[key]["step_ms"], rank0=r0["step_ms"],
                                 rank1=r1["step_ms"]),
                    peak_gib=dict(one_process=one[key]["peak_gib"], rank0=r0["peak_gib"],
                                  rank1=r1["peak_gib"]),
+                   seconds=res["seconds"][key],
                    loss_G=[m["loss_G"] for m in r0["metrics"]],
                    loss_G_one=[m["loss_G"] for m in one[key]["metrics"]])
+        if "block_inputs" in r0:
+            run["block_inputs"] = r0["block_inputs"]
+        if "sample" in r0:
+            got = torch.cat([r0["sample"], r1["sample"]], 1)
+            want = one[key]["sample"]
+            run["ddim"] = dict(shape=list(got.shape), finite=bool(torch.isfinite(got).all()),
+                               max_abs=float(got.abs().max()),
+                               vs_one_process_max_abs=float((got - want).abs().max()),
+                               ms=dict(one_process=one[key]["sample_ms"],
+                                       rank0=r0["sample_ms"]))
+            if not (run["ddim"]["finite"] and run["ddim"]["max_abs"] <= 1.0
+                    and tuple(got.shape) == tuple(want.shape)):
+                problems.append(f"{key}: the DDIM sample on strips {run['ddim']}")
         res["runs"][key] = run
         print(json.dumps({f"spatial_{key}": run}))
-        want = {k: v * SPATIAL["steps"] for k, v in per.items()}
+        n_steps = len(r0["metrics"])
+        want = {k: v * n_steps for k, v in _sp_per(key).items()}
         if not same:
             problems.append(f"{key}: the ranks' states or metrics differ")
         for r in (r0, r1):
             if r["launches"] != want:
                 problems.append(f"{key}: a rank launched {r['launches']}, want {want}")
-            rows = {n: shape[2] for n, shape in r["block_inputs"].items()}
-            if rows != _sp_rows():
-                problems.append(f"{key}: block input rows {rows}, want {_sp_rows()}")
+            if "block_inputs" in r:
+                rows = {n: shape[2] for n, shape in r["block_inputs"].items()}
+                if rows != _sp_rows():
+                    problems.append(f"{key}: block input rows {rows}, want {_sp_rows()}")
         if not (r0["tally"] or {}).get("collective-permute", {}).get("bytes"):
             problems.append(f"{key}: no halo bytes in the tally {r0['tally']}")
         if not all(math.isfinite(v) for m in r0["metrics"] for v in m.values()):
             problems.append(f"{key}: non-finite metrics")
-        if key != "f32":
-            launches = {k: launches[k] + r0["launches"][k] + r1["launches"][k] for k in per}
-    print(json.dumps({"spatial_f32_gate": dict(card=card, gate=gate, over=over,
-                                               distances=distances)}))
+        if dname != "f32":
+            launches = {k: launches[k] + r0["launches"][k] + r1["launches"][k] for k in launches}
+    print(json.dumps({"spatial_f32_gates": dict(card=card, gates=res["gates"],
+                                                distances=distances)}))
     if faults:
         print(json.dumps({"spatial_faults": dict(card=card, over=planted)}))
-        missed = [f for f, o in planted.items() if not o["over"]]
+        missed = [f"{f} ({r})" for f, o in planted.items() for r, v in o.items()
+                  if r != "seconds" and not v["over"]]
         if missed:
-            problems.append(f"the gate passed the planted faults {missed}")
+            problems.append(f"the gates passed the planted faults {missed}")
+        res["faults"] = planted
     if problems:
         fail("spatial: " + "; ".join(problems))
     return res, launches
+
+
+def grad_spread(torch, np, bc, card, n, out=None):
+    """``--grad_spread N``: one process's f32 first step at SPATIAL's config
+    (512x512, batch 1, pool 0, TF32 off) N times for pix2pix and each of
+    SP_RECIPES, and the halves' run once, under cuDNN's default algorithms
+    and then under its deterministic ones; for each weight (and each net's
+    weights as one vector) the largest rel-L2 between any two of the N
+    runs (the spread), the halves' reading against the first run, and the
+    spread as a fraction of that reading. The gate's limit is
+    max(SPATIAL["grad"], SPATIAL["noise"] x the halves' reading), so a
+    rank's reading of halves + spread stays within it where the fraction is
+    at most 1 (or the limit is the flat floor): ``covered``. One line a
+    weight, one summary line a recipe and mode; with ``out`` all of it in
+    out/grad_spread.json."""
+    report = {}
+    for mode in ("default", "deterministic"):
+        for recipe in ("pix2pix",) + SP_RECIPES:
+            report[f"{recipe}_{mode}"] = _spread(torch, np, bc, card, n, recipe,
+                                                 mode == "deterministic")
+    if out:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "grad_spread.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
+def _spread(torch, np, bc, card, n, recipe, deterministic):
+    """``grad_spread``'s readings of one recipe in one cuDNN mode."""
+    runs = []
+    for _ in range(n):
+        torch.cuda.empty_cache()
+        runs.append(_sp_run(torch, np, bc, None, recipe, torch.float32, timed=False, steps=1,
+                            deterministic=deterministic))
+    torch.cuda.empty_cache()
+    halves = _sp_run(torch, np, bc, None, recipe, torch.float32, timed=False, halves=True,
+                     steps=1, deterministic=deterministic)
+    mode = "deterministic" if deterministic else "default"
+    rows = []
+    for net, weights in runs[0]["grads"].items():
+        keys = [k for k, v in weights.items() if v.dim() > 1]
+        vec = {"all weights": lambda r: torch.cat([r["grads"][net][k].reshape(-1)
+                                                   for k in keys])}
+        vec.update({k: (lambda r, k=k: r["grads"][net][k]) for k in keys})
+        for k, get in vec.items():
+            spread = max((rel_l2(get(a), get(b)) for i, a in enumerate(runs)
+                          for b in runs[i + 1:]), default=0.0)
+            h = rel_l2(get(halves), get(runs[0]))
+            limit = max(SPATIAL["grad"], SPATIAL["noise"] * h)
+            row = dict(recipe=recipe, cudnn=mode, net=net, tensor=k, spread=spread, halves=h,
+                       fraction=spread / h if h else math.inf, limit=limit,
+                       covered=h + spread <= limit)
+            rows.append(row)
+            print(json.dumps({"grad_spread_weight": row}))
+    uncovered = [r for r in rows if not r["covered"]]
+    worst = max(rows, key=lambda r: r["fraction"] if r["halves"] else -1)
+    summary = dict(card=card, recipe=recipe, cudnn=mode, runs=n, weights=len(rows),
+                   uncovered=len(uncovered),
+                   uncovered_tensors=[f"{r['net']}.{r['tensor']}" for r in uncovered][:10],
+                   largest_fraction=dict(tensor=f"{worst['net']}.{worst['tensor']}",
+                                         fraction=worst["fraction"], spread=worst["spread"],
+                                         halves=worst["halves"]),
+                   largest_spread=max(r["spread"] for r in rows),
+                   seconds=[r["seconds"] for r in runs])
+    print(json.dumps({"grad_spread": summary}))
+    return dict(summary=summary, rows=rows)
 
 
 def main(argv=None):
@@ -2661,6 +2991,10 @@ def main(argv=None):
     ap.add_argument("--spatial_faults", action="store_true",
                     help="only run the spatial-axis f32 comparison, then once with each of "
                          "SPATIAL_FAULTS planted in the ranks, which its gate must fail, and exit")
+    ap.add_argument("--grad_spread", type=int, metavar="N",
+                    help="only run one process's f32 first step at the spatial phase's config N "
+                         "times for each recipe, print each weight's spread across the runs "
+                         "beside the halves' reading the spatial gate doubles, and exit")
     ap.add_argument("--profile_trials", type=int, metavar="N",
                     help="only trace the graph phase's eager and replayed steps N times each, "
                          "without and with the trace's settling wait, count the traces that "
@@ -2721,6 +3055,11 @@ def main(argv=None):
         _card_flags(torch)
         dp_phase(torch, np, bc, card, faults=FAULTS)
         print("chip_smoke: the data-parallel gate failed every planted fault")
+        return 0
+    if args.grad_spread:
+        _card_flags(torch)
+        grad_spread(torch, np, bc, card, args.grad_spread, args.out)
+        print(f"chip_smoke: the gradient spread took {time.perf_counter() - t_start:.1f} s")
         return 0
     if args.spatial or args.spatial_faults:
         _card_flags(torch)

@@ -40,6 +40,12 @@ every ConvNeXt block of the six applications runs K1 / K3 forward and
 K2 / K4 backward on the card: 30 K1 + 24 K3 + 30 K2 + 24 K4 a step with
 the identity terms. rec_A and rec_B send the input gradient of one
 generator (c1's K2 ``dx`` and its folded ``dn``) into the other's backward.
+
+On a spatial axis (``parallel.spatial``) the step and the eval forward
+run on this rank's strip of the image rows: every loss term is a rank's
+share, the pools hold strips of (H / S)-row images and draw per image,
+alike on every rank, and the checkpoint joins both pools' strips into
+whole images (``CycleGANModel.POOLS``).
 """
 
 import dataclasses
@@ -59,7 +65,13 @@ from dsgan_tpu_torch.models.pix2pix import (
     set_lr,
 )
 from dsgan_tpu_torch.models.registry import define_D, define_G
-from dsgan_tpu_torch.parallel import data_size, query_pool, reduce_gradients, reduce_metrics
+from dsgan_tpu_torch.parallel import (
+    data_size,
+    query_pool,
+    reduce_gradients,
+    reduce_metrics,
+    spatial,
+)
 from dsgan_tpu_torch.utils import checkpoint as ckpt
 from dsgan_tpu_torch.utils.image_pool import ImagePool
 
@@ -124,9 +136,10 @@ class CycleGANState:
 
 def init_state(G_A, G_B, D_A, D_B, cfg, size, input_nc=3, output_nc=3, seed=0):
     """The joint Adams, the pools of (input_nc, *size) fake_A and
-    (output_nc, *size) fake_B images in f32 on G_A's device, their draws
-    seeded from ``seed`` (pool_A) and ``seed + 2`` (pool_B), the step
-    counter at 0, and the dropout generator, seeded from ``seed + 1``."""
+    (output_nc, *size) fake_B images in f32 on G_A's device (on a spatial
+    axis ``size`` is a strip's: (H / S, W)), their draws seeded from
+    ``seed`` (pool_A) and ``seed + 2`` (pool_B), the step counter at 0, and
+    the dropout generator, seeded from ``seed + 1``."""
     dev = next(G_A.parameters()).device
     dropout = torch.Generator(device=dev).manual_seed(seed + 1)
     for g in (G_A, G_B):
@@ -186,11 +199,20 @@ def make_cyclegan_step(cfg: CycleGANConfig, mesh=None):
     ``lr`` a float or a 0-d device tensor; ``metrics`` holds 0-d f32 device
     tensors under the JAX step's names; ``visuals`` is one (B, H, W,
     2 * (output_nc + input_nc)) f32 tensor, the channel concat of fake_B,
-    rec_A, fake_A and rec_B (``split_visuals``), detached. On a
-    data-parallel ``mesh`` the inputs are this rank's rows; the two pools
-    are queried on the global batch (``parallel.mesh``)."""
+    rec_A, fake_A and rec_B (``split_visuals``), detached. On a ``mesh``
+    the inputs are this rank's rows (and on a spatial axis its strip of
+    their image rows, the step running under ``spatial.rows(mesh)``, every
+    loss term a rank's share); the two pools are queried on the global
+    batch, per image, with the same draws on every rank
+    (``parallel.mesh``). On a strip the G-only backward still carries the
+    halo cotangents through D_A and D_B: every rank of a row group builds
+    the same graph, so its exchanges run in the same order on each."""
 
     def step(state, real_A, real_B, lr):
+        with spatial.rows(mesh):
+            return _step(state, real_A, real_B, lr)
+
+    def _step(state, real_A, real_B, lr):
         D_A, D_B = state.netD_A, state.netD_B
         raw_B = real_B
         real_A, real_B = images(real_A, None), images(real_B, None)
@@ -238,7 +260,10 @@ def split_visuals(out, input_nc, output_nc):
 class CycleGANModel(Pix2PixModel):
     """The shell over the step (``dsgan_tpu/models/cycle_gan.py:184-416``):
     options -> four networks -> state -> step. The data side (set_input,
-    chunks) and the getters are pix2pix's."""
+    chunks), the getters and the checkpoint's join of the pools' strips
+    are pix2pix's."""
+
+    POOLS = ("pool_A_images", "pool_B_images")
 
     def name(self):
         return "CycleGANModel"
@@ -283,8 +308,9 @@ class CycleGANModel(Pix2PixModel):
                                   pool_size=opt.pool_size, lambda_A=opt.lambda_A,
                                   lambda_B=opt.lambda_B, lambda_identity=opt.lambda_identity,
                                   beta1=opt.beta1)
+        rows = opt.fineSize_h // (self.mesh.spatial if self.mesh is not None else 1)
         self.state = init_state(self.netG_A, self.netG_B, self.netD_A, self.netD_B, self.cfg,
-                                (opt.fineSize_h, opt.fineSize_w), opt.input_nc, opt.output_nc,
+                                (rows, opt.fineSize_w), opt.input_nc, opt.output_nc,
                                 seed=opt.seed)
         self._on_mesh(self.netG_A, self.netG_B, self.netD_A, self.netD_B)
         self._step_fn = make_cyclegan_step(self.cfg, self.mesh)
@@ -315,12 +341,14 @@ class CycleGANModel(Pix2PixModel):
     def forward(self):
         """fake_B, rec_A, fake_A and rec_B in eval mode and inference mode,
         (B, H, W, C) f32 on the device: no autograd records, so every
-        ConvNeXt block takes the registered ops (K1 / K3 on the card)."""
+        ConvNeXt block takes the registered ops (K1 / K3 on the card). On a
+        spatial axis each is this rank's strip; the visuals and getters join
+        them."""
         nets = (self.netG_A, self.netG_B)
         was = [n.training for n in nets]
         for n in nets:
             n.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), spatial.rows(self.mesh):
             fake_B = self.netG_A(images(self.real_A, self.compute_dtype))
             rec_A = self.netG_B(fake_B)
             fake_A = self.netG_B(images(self.real_B, self.compute_dtype))

@@ -26,9 +26,12 @@ package built the rest, and this module ports it value for value:
 
 The draws come from explicit ``torch.Generator``s: the step's from the
 state's, which the checkpoint holds; a sample's from a generator seeded
-with the train step, as JAX folds the step into its key. On a
-data-parallel mesh both are drawn for the global batch and each rank
-keeps its rows.
+with the train step, as JAX folds the step into its key. On a mesh both
+are drawn for the global batch's whole images and each rank keeps its
+rows, and on a spatial axis its strip of their image rows (``_noise``), as
+``layers.Dropout`` draws its mask: the step, the sampler and the probe
+run under ``spatial.rows(mesh)``, the MSE and the probe's metrics as this
+rank's shares, and the shell's visuals join the strips.
 """
 
 import dataclasses
@@ -44,7 +47,12 @@ from dsgan_tpu_torch.models.base_model import BaseModel
 from dsgan_tpu_torch.models.layers import Conv2d, ConvTranspose2d, Linear, gelu
 from dsgan_tpu_torch.models.pix2pix import images, load_adam, make_adam, set_lr
 from dsgan_tpu_torch.ops.initializers import init_tree
-from dsgan_tpu_torch.parallel import data_size, reduce_gradients, reduce_metrics
+from dsgan_tpu_torch.parallel import (
+    data_size,
+    reduce_gradients,
+    reduce_metrics,
+    spatial,
+)
 from dsgan_tpu_torch.utils import checkpoint as ckpt
 from dsgan_tpu_torch.utils.convert import (
     diffusion_entries,
@@ -126,13 +134,23 @@ class DenoiseUNet(nn.Module):
         dt = self.compute_dtype or xt.dtype
         temb = self.temb(t, dt)
         x = torch.cat([xt, cond], 1).to(dt)
-        e1 = self.e1(x, temb)
-        e2 = self.e2(ops.max_pool2d(e1, 2), temb)
-        e3 = self.e3(ops.max_pool2d(e2, 2), temb)
-        m = self.mid(e3, temb)
-        d2 = self.d2(torch.cat([self.up2(m), e2], 1), temb)
-        d1 = self.d1(torch.cat([self.up1(d2), e1], 1), temb)
-        return self.out(d1).to(xt.dtype)
+        # the three levels (on a strip, a level whose height does not split
+        # over the row group runs whole on every rank: ``spatial.Levels``)
+        lv = spatial.Levels(x.shape[2], 3)
+        with lv.at(0):
+            e1 = self.e1(x, temb)
+        e2_in = lv.pool(e1, 0)
+        with lv.at(1):
+            e2 = self.e2(e2_in, temb)
+        e3_in = lv.pool(e2, 1)
+        with lv.at(2):
+            m = self.mid(self.e3(e3_in, temb), temb)
+        up2 = lv.up(self.up2, m, 2)
+        with lv.at(1):
+            d2 = self.d2(torch.cat([up2, e2], 1), temb)
+        up1 = lv.up(self.up1, d2, 1)
+        with lv.at(0):
+            return self.out(self.d1(torch.cat([up1, e1], 1), temb)).to(xt.dtype)
 
 
 def init_denoiser_params(in_nc=3, out_nc=3, nf=64, seed=0):
@@ -206,15 +224,35 @@ def _rows(n, mesh):
     return total, (slice(0, n) if mesh is None else mesh.rows(total))
 
 
+def _noise(shape, mesh, generator, device):
+    """A standard normal (B, C, H, W) draw for this rank's part of the global
+    batch: drawn for the global batch and, on a spatial axis, for the whole
+    image (H times the row group's size), this rank's rows and strip kept,
+    so that each rank holds its part of one process's draw."""
+    b, c, h, w = shape
+    total, rows = _rows(b, mesh)
+    s = 1 if mesh is None else mesh.spatial
+    eps = torch.randn((total, c, h * s, w), generator=generator, device=device)[rows]
+    return eps if s == 1 else eps[:, :, mesh.strip(h * s)]
+
+
 def make_diffusion_train_step(cfg, mesh=None):
     """The step: (state, real_A, real_B, lr, t=None, eps=None) -> metrics
     ({"loss_G"}: the f32 noise-prediction MSE, a 0-d device tensor).
     real_A (the condition) and real_B are (B, H, W, C), uint8 or [-1, 1];
     ``t`` (B,) ints and ``eps`` (B, C, H, W) are drawn from the state's
-    generator unless given. On a ``mesh`` the draws are the global batch's,
-    this rank's rows kept, and the gradient and loss are averaged."""
+    generator unless given. On a ``mesh`` the inputs are this rank's rows
+    (and on a spatial axis its strip of their image rows, the step running
+    under ``spatial.rows(mesh)``); the draws are the global batch's whole
+    images, this rank's rows and strip kept (``t`` per image, so equal on
+    every rank of a row group), the MSE this rank's share, and the gradient
+    and loss reduced over the mesh."""
 
     def step(state, real_A, real_B, lr, t=None, eps=None):
+        with spatial.rows(mesh):
+            return _step(state, real_A, real_B, lr, t, eps)
+
+    def _step(state, real_A, real_B, lr, t, eps):
         cond = images(real_A, cfg.compute_dtype)
         x0 = images(real_B, cfg.compute_dtype)
         dev = x0.device
@@ -223,14 +261,13 @@ def make_diffusion_train_step(cfg, mesh=None):
             t = torch.randint(0, cfg.timesteps, (total,), generator=state.generator,
                               device=dev)[rows]
         if eps is None:
-            eps = torch.randn((total, *x0.shape[1:]), generator=state.generator,
-                              device=dev)[rows]
+            eps = _noise(x0.shape, mesh, state.generator, dev)
         t, eps = t.to(dev), eps.to(device=dev, dtype=x0.dtype)
         ba = state.bar_alpha[t].to(x0.dtype)[:, None, None, None]
         bb = state.bar_beta[t].to(x0.dtype)[:, None, None, None]
         x_t = ba * x0 + bb * eps
         pred = state.net(x_t, cond, t)
-        loss = (pred.float() - eps.float()).square().mean()
+        loss = spatial.mean((pred.float() - eps.float()).square())
         state.opt.zero_grad(set_to_none=True)
         loss.backward()
         reduce_gradients(state.opt, mesh)
@@ -246,7 +283,10 @@ def make_ddim_sampler(cfg, sample_steps=20):
     """DDIM (eta 0): sample(net, cond, x_T=None, generator=None, mesh=None)
     -> (B, H, W, out_nc) f32 on cond's device. ``cond`` is (B, H, W, C),
     uint8 or [-1, 1]; ``x_T`` (B, out_nc, H, W) is drawn from ``generator``
-    unless given (on a ``mesh``, for the global batch, this rank's rows)."""
+    unless given. On a ``mesh`` ``cond`` is this rank's rows (and on a
+    spatial axis its strip), ``x_T`` drawn for the global batch's whole
+    images with this rank's part kept, the loop run under
+    ``spatial.rows(mesh)``, and the result this rank's part."""
     ts = np.linspace(cfg.timesteps - 1, 0, sample_steps).round().astype(np.int64).tolist()
     schedule = make_schedule(cfg.timesteps)
 
@@ -257,14 +297,15 @@ def make_ddim_sampler(cfg, sample_steps=20):
         bar_alpha, bar_beta = (s.to(dev) for s in schedule)
         b, _, h, w = cond.shape
         if x_T is None:
-            total, rows = _rows(b, mesh)
-            x_T = torch.randn((total, net.out_nc, h, w), generator=generator, device=dev)[rows]
+            x_T = _noise((b, net.out_nc, h, w), mesh, generator, dev)
         x = x_T.to(device=dev, dtype=torch.float32)
-        for i, t in enumerate(ts):
-            eps = net(x, cond, torch.full((b,), t, dtype=torch.int64, device=dev)).float()
-            x0 = ((x - bar_beta[t] * eps) / bar_alpha[t]).clamp(-1.0, 1.0)
-            # the last step lands on x0 (JAX: ba_p = 1, bb_p = 0)
-            x = bar_alpha[ts[i + 1]] * x0 + bar_beta[ts[i + 1]] * eps if i + 1 < len(ts) else x0
+        with spatial.rows(mesh):
+            for i, t in enumerate(ts):
+                eps = net(x, cond, torch.full((b,), t, dtype=torch.int64, device=dev)).float()
+                x0 = ((x - bar_beta[t] * eps) / bar_alpha[t]).clamp(-1.0, 1.0)
+                # the last step lands on x0 (JAX: ba_p = 1, bb_p = 0)
+                x = (bar_alpha[ts[i + 1]] * x0 + bar_beta[ts[i + 1]] * eps if i + 1 < len(ts)
+                     else x0)
         return x.permute(0, 2, 3, 1).contiguous()
 
     return sample
@@ -336,7 +377,7 @@ class DiffusionModel(BaseModel):
             fake_q = ops.quantize_uint8(self.forward().permute(0, 3, 1, 2))
             rb = self.real_B.permute(0, 3, 1, 2)
             real_q = rb.float() if rb.dtype == torch.uint8 else ops.quantize_uint8(rb)
-            with torch.no_grad():
+            with torch.no_grad(), spatial.rows(self.mesh):  # on strips: shares
                 probe = reduce_metrics({"ssim": ops.ssim_uint8(real_q, fake_q)}, self.mesh,
                                        ops.mse_uint8(real_q, fake_q))
             self._metrics = dict(self._metrics, **probe)

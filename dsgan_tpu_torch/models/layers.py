@@ -5,9 +5,10 @@ its weights cast at use, as the JAX package's layers do (f32 parameters,
 a bf16 compute dtype). On a strip of the spatial axis
 (``parallel.spatial``) the convs fetch their halo rows from the row group,
 a ``Pad`` hands its rows and mode to the conv after it, which fetches
-them (reflected only at the image's top and bottom), and ``Dropout``
+them (reflected only at the image's top and bottom), ``Dropout``
 draws the whole image's mask and keeps its strip's rows, so that a strip
-sees the mask one process would.
+sees the mask one process would, and ``BatchNorm2d`` sums its statistics
+over the ranks that hold the global batch's rows.
 """
 
 import torch
@@ -110,7 +111,9 @@ class BatchNorm2d(nn.Module):
     to x's dtype. Parameters and buffers stay f32. On a data-parallel mesh
     (``set_batchnorm_mesh``) the statistics are the global batch's, as
     GSPMD gives them in JAX: the per-channel sums of x and then of
-    (x - mean)^2 summed over the ranks, with their gradients."""
+    (x - mean)^2 summed over the ranks, with their gradients, and the
+    count and its unbiasing the global batch's B * H * W (``_stats``).
+    Every rank then holds the same running averages, bit for bit."""
 
     def __init__(self, num_features, momentum=0.1, eps=1e-5):
         super().__init__()
@@ -123,17 +126,30 @@ class BatchNorm2d(nn.Module):
 
     def _stats(self, xf):
         """(mean, biased variance, count) over (B, H, W), of the global batch
-        on a mesh."""
+        on a mesh: on a strip (``spatial.active()``) the sums over every rank
+        and the count the strip's times data x spatial; in a level every rank
+        of a row group holds whole, over the data group alone."""
         n = xf.numel() // xf.shape[1]
-        if self.mesh is None:
+        mesh = self.mesh
+        if mesh is None:
             mean = xf.mean(dim=(0, 2, 3))
             return mean, (xf - mean[:, None, None]).square().mean(dim=(0, 2, 3)), n
         from dsgan_tpu_torch.parallel.comms import SumOverRanks
 
-        n *= self.mesh.data
-        mean = SumOverRanks.apply(xf.sum(dim=(0, 2, 3)), self.mesh) / n
+        if mesh.spatial == 1:
+            group, ranks = mesh.group, mesh.data
+        elif spatial.active() is not None:  # a strip
+            group, ranks = mesh.group, mesh.data * mesh.spatial
+        else:  # the whole image on every rank of the row group
+            group, ranks = mesh.data_group, mesh.data
+        n *= ranks
+
+        def total(t):
+            return SumOverRanks.apply(t, mesh, group) if ranks > 1 else t
+
+        mean = total(xf.sum(dim=(0, 2, 3))) / n
         sq = (xf - mean[:, None, None]).square().sum(dim=(0, 2, 3))
-        return mean, SumOverRanks.apply(sq, self.mesh) / n, n
+        return mean, total(sq) / n, n
 
     def forward(self, x):
         xf = x.float()

@@ -314,6 +314,9 @@ class Pix2PixModel(BaseModel):
     """The shell over the step: options -> networks -> state -> step
     (``dsgan_tpu/models/pix2pix.py:276-573``)."""
 
+    # the checkpoint's pool images, joined from the row group's strips
+    POOLS = ("pool_images",)
+
     def name(self):
         return "Pix2PixModel"
 
@@ -514,10 +517,11 @@ class Pix2PixModel(BaseModel):
         and ``lr_last_epoch`` (``dsgan_tpu/models/pix2pix.py:540-550``). On
         a spatial axis the pool's images are gathered from the row group's
         strips (every rank calls this), so a checkpoint holds whole images
-        whatever the mesh."""
+        whatever the mesh (``POOLS``: CycleGAN has two pools)."""
         st = dict(self.state.state_dict(), lr_last_epoch=self._last_epoch)
         if self.mesh is not None and self.mesh.spatial > 1:
-            st["pool_images"] = gather_image_rows(st["pool_images"], self.mesh)
+            for key in self.POOLS:
+                st[key] = gather_image_rows(st[key], self.mesh)
         return st
 
     def _load_checkpoint_state(self, st):
@@ -527,9 +531,9 @@ class Pix2PixModel(BaseModel):
         hold, is ignored. ``resume_position``: where a preempted run stood
         (the train CLI's "run" entry), or None."""
         self._chained.reset()
-        if self.mesh is not None and self.mesh.spatial > 1:  # this rank's strip of the pool
-            st = dict(st, pool_images=st["pool_images"][:, :, self.mesh.strip(
-                st["pool_images"].shape[2])])
+        if self.mesh is not None and self.mesh.spatial > 1:  # this rank's strip of the pools
+            st = dict(st, **{k: st[k][:, :, self.mesh.strip(st[k].shape[2])]
+                             for k in self.POOLS})
         self.state.load_state_dict(st)
         self._last_epoch = int(st["lr_last_epoch"])
         self.resume_position = st.get("run")

@@ -11,7 +11,8 @@ built, the GELU flavour from ``--gelu`` through ``define_G(gelu_mode=...)``.
 
 Flags the port parses but cannot honour yet raise on a value other than
 their default, naming the ROADMAP.md item that brings them
-(``unsupported``); ``--spatial_axis`` above 1 runs the default recipe and
+(``unsupported``); ``--spatial_axis`` above 1 runs pix2pix, CycleGAN and
+diffusion on the resnet / MixConvNeXtML generators and the PatchGAN, and
 raises for the rest (``parallel.check_spatial_recipe``, item 21).
 """
 
@@ -138,7 +139,8 @@ class BaseOptions:
                                  "it divides --batchSize)")
         parser.add_argument("--spatial_axis", type=int, default=1,
                             help="spatial-parallel mesh size: image rows over this many ranks "
-                                 "(the default recipe; ROADMAP.md item 21 for the rest)")
+                                 "(pix2pix, cycle_gan, diffusion; ROADMAP.md item 21 for the "
+                                 "other zoo networks)")
         parser.add_argument("--num_hosts", type=int, default=1,
                             help="processes of the run, one a card (torchrun's, or JAX's "
                                  "JAX_COORDINATOR_ADDRESS / JAX_PROCESS_ID rendezvous)")

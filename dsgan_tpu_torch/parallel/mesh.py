@@ -41,9 +41,15 @@ of a row group summing to its data row's value, so that one all-reduce
 over all the ranks divided by ``data`` gives the global batch's value,
 and the same all-reduce of the gradients sums a row group's partial
 weight gradients and averages the data rows' (``reduce_gradients``,
-``reduce_metrics``). The spatial axis runs the default recipe (pix2pix,
-MixConvNeXtML or resnet_6/9blocks, the PatchGAN, instance norm);
-``check_spatial_recipe`` refuses the rest, ROADMAP.md queue A item 21.
+``reduce_metrics``). BatchNorm sums its statistics over every rank on a
+strip, and over the data group alone in a level that every rank of a row
+group holds whole (``layers.BatchNorm2d``). A pool draws per image, its
+draws equal on every rank, so each rank swaps its strip of the same
+images. The spatial axis runs pix2pix and CycleGAN on MixConvNeXtML or
+resnet_6/9blocks against the ``basic`` / ``n_layers`` PatchGAN, and
+diffusion's DenoiseUNet, under any ``--norm``; ``check_spatial_recipe``
+refuses the rest of the zoo's generators and the ``pixel`` / ``multi``
+Ds, ROADMAP.md queue A item 21.
 """
 
 import dataclasses
@@ -55,7 +61,7 @@ from dsgan_tpu_torch.ops.metrics import psnr_from_mse
 from dsgan_tpu_torch.parallel import comms, multihost
 
 # what the spatial axis runs (the rest is ROADMAP.md queue A item 21)
-SPATIAL_MODELS = ("pix2pix", "test")
+SPATIAL_MODELS = ("pix2pix", "test", "cycle_gan", "diffusion")
 SPATIAL_GENERATORS = ("MixConvNeXtML", "resnet_6blocks", "resnet_9blocks")
 SPATIAL_DISCRIMINATORS = ("basic", "n_layers")
 
@@ -164,24 +170,25 @@ def _spatial_mesh(data, spatial, rank):
 
 def check_spatial_recipe(opt, is_train=False):
     """Raise unless the options' run is one the spatial axis runs: pix2pix
-    (train, eval, video) on MixConvNeXtML or resnet_6/9blocks, the PatchGAN
-    (``is_train``), instance norm."""
+    and CycleGAN (train, eval, video) on MixConvNeXtML or resnet_6/9blocks,
+    the PatchGAN (``is_train``), or diffusion (its DenoiseUNet reads no
+    generator or D flag); any ``--norm``."""
     if int(getattr(opt, "spatial_axis", 1) or 1) <= 1:
         return
     bad = []
-    if getattr(opt, "model", "pix2pix") not in SPATIAL_MODELS:
-        bad.append(f"--model {opt.model}")
-    if getattr(opt, "which_model_netG", "MixConvNeXtML") not in SPATIAL_GENERATORS:
-        bad.append(f"--which_model_netG {opt.which_model_netG}")
-    if is_train and getattr(opt, "which_model_netD", "basic") not in SPATIAL_DISCRIMINATORS:
-        bad.append(f"--which_model_netD {opt.which_model_netD}")
-    if getattr(opt, "norm", "instance") != "instance":
-        bad.append(f"--norm {opt.norm}")
+    model = getattr(opt, "model", "pix2pix")
+    if model not in SPATIAL_MODELS:
+        bad.append(f"--model {model}")
+    elif model != "diffusion":
+        if getattr(opt, "which_model_netG", "MixConvNeXtML") not in SPATIAL_GENERATORS:
+            bad.append(f"--which_model_netG {opt.which_model_netG}")
+        if is_train and getattr(opt, "which_model_netD", "basic") not in SPATIAL_DISCRIMINATORS:
+            bad.append(f"--which_model_netD {opt.which_model_netD}")
     if bad:
         raise NotImplementedError(
             f"--spatial_axis {opt.spatial_axis} with {', '.join(bad)} is not ported: the spatial "
-            "axis runs pix2pix on MixConvNeXtML or resnet_6/9blocks, the PatchGAN and instance "
-            "norm; the rest is ROADMAP.md queue A item 21")
+            "axis runs pix2pix and CycleGAN on MixConvNeXtML or resnet_6/9blocks and the "
+            "PatchGAN, and diffusion, under any --norm; the rest is ROADMAP.md queue A item 21")
 
 
 def data_size(mesh):

@@ -56,11 +56,13 @@ def test_parse_writes_opt_txt_and_sets_no_process_state(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    # the spatial axis runs the default recipe (item 13); CycleGAN on it is item 21
-    pytest.param(["--spatial_axis", "2", "--model", "cycle_gan"], "item 21",
+    # the spatial axis (item 13) runs pix2pix, CycleGAN and diffusion on the
+    # resnet / MixConvNeXtML generators and the PatchGAN; the U-Nets and the
+    # pixel D on it are item 21
+    pytest.param(["--spatial_axis", "2", "--which_model_netG", "unet_256"], "item 21",
                  id="--spatial_axis_2-item 13"),
-    pytest.param(["--data_axis", "2", "--spatial_axis", "2", "--norm", "batch"], "item 21",
-                 id="--data_axis_2_--spatial_axis_2-item 13"),
+    pytest.param(["--data_axis", "2", "--spatial_axis", "2", "--which_model_netD", "pixel"],
+                 "item 21", id="--data_axis_2_--spatial_axis_2-item 13"),
     pytest.param(["--remat"], "not needed", id="--remat-not needed"),
 ])
 def test_unported_switches_raise_with_their_roadmap_item(tmp_path, argv, match):

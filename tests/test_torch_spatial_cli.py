@@ -10,8 +10,12 @@ spawned), the counterpart of ``tests/test_parallel.py:138-193``:
   * the train CLI at ``--spatial_axis 2`` on MixConvNeXtML, then the eval
     CLI and the video CLI at ``--spatial_axis 2`` on its checkpoint against
     one process: the same ``metrics.csv`` and ``temporal.csv``;
+  * ``--model cycle_gan`` and ``--model diffusion`` through the train CLI
+    (one step) and the eval CLI at ``--spatial_axis 2`` against one
+    process: the checkpoints (CycleGAN's two pools joined from the strips,
+    diffusion's draws) and the eval's metrics;
   * the recipes the spatial axis does not run raise, naming ROADMAP.md
-    item 21.
+    item 21; CycleGAN, diffusion and ``--norm batch|none`` parse.
 """
 
 import csv
@@ -159,13 +163,111 @@ def test_mixconvnext_train_eval_video_on_two_strips(tmp_path):
     assert not (tmp_path / "res1").exists() and not (tmp_path / "ck1").exists()
 
 
+def _unaligned(root, n=2):
+    rng = np.random.default_rng(3)
+    for phase in ("train", "test"):
+        for side in "AB":
+            d = root / "udata" / f"{phase}{side}"
+            d.mkdir(parents=True)
+            for i in range(n):
+                Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(
+                    d / f"{side.lower()}_{i}.png")
+    return str(root / "udata")
+
+
+def _train_eval_rank(rank, root, train_argv, eval_argv):
+    torch.set_num_threads(1)
+    from dsgan_tpu_torch import test, train
+
+    train.main(train_argv + ["--checkpoints_dir", f"{root}/ck{rank}"])
+    test.main(eval_argv + ["--checkpoints_dir", f"{root}/ck0", "--results_dir",
+                           f"{root}/res{rank}"])
+
+
+def _train_eval(tmp_path, train_argv, eval_argv, name):
+    """The train CLI (one step) and the eval CLI on its epoch-1 checkpoint,
+    in one process and at ``--spatial_axis 2``: (the two checkpoints, the
+    two metrics.csv tables); rank 1 writes nothing."""
+    from dsgan_tpu_torch import test, train
+
+    train.main(train_argv + ["--checkpoints_dir", str(tmp_path / "one")])
+    test.main(eval_argv + ["--checkpoints_dir", str(tmp_path / "one"), "--results_dir",
+                           str(tmp_path / "res_one")])
+    strips = ["--num_hosts", "2", "--spatial_axis", "2"]
+    multihost.spawn(_train_eval_rank, 2, (str(tmp_path), train_argv + strips,
+                                          eval_argv + strips), timeout=300)
+    assert not (tmp_path / "res1").exists() and not (tmp_path / "ck1").exists()
+    phase = eval_argv[eval_argv.index("--phase") + 1] if "--phase" in eval_argv else "test_all/"
+    return ([ckpt.restore_state(str(tmp_path / d / name), 1) for d in ("one", "ck0")],
+            [list(csv.reader(open(tmp_path / d / name / f"{phase}_1" / "metrics.csv")))
+             for d in ("res_one", "res0")])
+
+
+def _same_metrics(tables):
+    assert [r[:2] for r in tables[0]] == [r[:2] for r in tables[1]] and len(tables[0]) == 4
+    for a, b in zip(tables[0][1:], tables[1][1:]):
+        np.testing.assert_allclose([float(b[2]), float(b[3])], [float(a[2]), float(a[3])],
+                                   rtol=1e-3, atol=1e-3)
+
+
+def test_cyclegan_train_eval_on_two_strips(tmp_path):
+    """``--model cycle_gan`` (resnet_6blocks ngf 8, PatchGAN ndf 8, a pool of
+    2 per side) through the train CLI for one step at ``--spatial_axis 2``
+    (a chunk of ``--steps_per_dispatch 2`` staged on the strips, its one
+    step eager) and the eval CLI on its checkpoint, against one process: the
+    checkpoint's parameters, both pools joined from the strips, both Adams'
+    moments; the eval's per-image and mean metrics."""
+    data = _unaligned(tmp_path)
+    argv = ["--dataroot", data, "--name", "c", "--model", "cycle_gan", "--dataset_mode",
+            "unaligned", "--steps_per_dispatch", "2"] + COMMON + RESNET
+    tail = ["--dataroot", data, "--name", "c", "--which_epoch", "1", "--model", "cycle_gan",
+            "--dataset_mode", "unaligned", "--phase", "test", "--how_many", "2",
+            "--which_model_netG", "resnet_6blocks", "--ngf", "8", "--no_dropout",
+            "--platform", "cpu", "--dtype", "float32"] + SIZE
+    (want, got), tables = _train_eval(tmp_path, argv + ["--phase", "train"], tail, "c")
+    assert int(got["step"]) == int(want["step"]) == 1
+    for net in ("netG_A", "netG_B", "netD_A", "netD_B"):
+        for k, w in want[net].items():
+            torch.testing.assert_close(got[net][k], w, rtol=0, atol=1e-6)
+    for opt in ("opt_G", "opt_D"):
+        assert rel_l2(_adam(got, opt), _adam(want, opt)) <= 1e-4
+    for side in "AB":
+        assert got[f"pool_{side}_images"].shape == (2, 3, 32, 32)
+        torch.testing.assert_close(got[f"pool_{side}_images"], want[f"pool_{side}_images"],
+                                   rtol=1e-4, atol=2e-4)
+        assert got[f"pool_{side}_count"] == want[f"pool_{side}_count"] == 2
+    _same_metrics(tables)
+
+
+def test_diffusion_train_eval_on_two_strips(tmp_path):
+    """``--model diffusion`` (nf 8, T 20, a 3-step DDIM probe every step)
+    through the train CLI for one step at ``--spatial_axis 2`` and the eval
+    CLI on its checkpoint, against one process: the same draws (the
+    generator's state), Adam's moments, the probe's SSIM / PSNR in
+    each_epoch.csv and the eval's DDIM samples' metrics."""
+    data = _dataset(tmp_path, n=2)
+    model = ["--model", "diffusion", "--diff_nf", "8", "--timesteps", "20", "--sample_steps",
+             "3"]
+    argv = ["--dataroot", data, "--name", "d", "--metric_freq", "1"] + model + COMMON
+    tail = ["--dataroot", data, "--name", "d", "--which_epoch", "1", "--how_many", "2",
+            "--platform", "cpu", "--dtype", "float32"] + model + SIZE
+    (want, got), tables = _train_eval(tmp_path, argv, tail, "d")
+    assert int(got["step"]) == int(want["step"]) == 1
+    assert torch.equal(got["generator"], want["generator"])
+    for k, w in want["net"].items():
+        torch.testing.assert_close(got["net"][k], w, rtol=0, atol=1e-6)
+    assert rel_l2(_adam(got, "opt"), _adam(want, "opt")) <= 1e-4
+    rows = [list(csv.reader(open(tmp_path / d / "d" / "each_epoch.csv"))) for d in ("one", "ck0")]
+    np.testing.assert_allclose([float(v) for v in rows[1][0][2:]],
+                               [float(v) for v in rows[0][0][2:]], rtol=1e-3, atol=1e-3)
+    _same_metrics(tables)
+
+
 @pytest.mark.parametrize("argv", [
-    ["--model", "cycle_gan", "--dataset_mode", "unaligned"],
-    ["--model", "diffusion"],
     ["--which_model_netG", "unet_128"],
     ["--which_model_netD", "multi"],
-    ["--norm", "batch", "--which_model_netG", "resnet_6blocks"],
-    ["--norm", "none", "--which_model_netG", "resnet_9blocks"],
+    ["--which_model_netD", "pixel"],
+    ["--which_model_netG", "cascaded", "--norm", "batch"],
 ], ids=lambda v: "_".join(a.lstrip("-") for a in v))
 def test_item_21_recipes_raise(tmp_path, argv):
     from dsgan_tpu_torch.options.train_options import TrainOptions
@@ -173,6 +275,25 @@ def test_item_21_recipes_raise(tmp_path, argv):
     with pytest.raises(NotImplementedError, match="item 21"):
         TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--spatial_axis", "2"]
                              + argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "cycle_gan", "--dataset_mode", "unaligned"],
+    ["--model", "diffusion"],
+    ["--norm", "batch", "--which_model_netG", "resnet_6blocks"],
+    ["--norm", "none", "--which_model_netG", "resnet_9blocks"],
+], ids=lambda v: "_".join(a.lstrip("-") for a in v))
+def test_item_21_parts_1_to_3_parse_on_the_spatial_axis(tmp_path, argv):
+    """CycleGAN, diffusion and ``--norm batch|none`` run on the spatial axis
+    (train and eval)."""
+    from dsgan_tpu_torch.options.test_options import TestOptions
+    from dsgan_tpu_torch.options.train_options import TrainOptions
+
+    for options in (TrainOptions, TestOptions):
+        opt = options().parse(argv=["--checkpoints_dir", str(tmp_path), "--spatial_axis", "2"]
+                              + argv)
+        assert opt.spatial_axis == 2 and [getattr(opt, a.lstrip("-")) for a in argv[::2]] == \
+            [a if not a.isdigit() else int(a) for a in argv[1::2]]
 
 
 def test_the_default_recipe_parses_on_the_spatial_axis(tmp_path):
