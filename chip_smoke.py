@@ -51,6 +51,14 @@ Phases, each of which fails the run:
      profiled replay runs the same block-core kernels, as many times, as a
      profiled eager step; then eager and replayed steps in turns, each
      with its step ms and one profiled step (wall, device ms, idle share);
+  7b. --remat (``remat_phase``): the phase 6 recipe with MixConvNeXtML's
+     blocks rematerialized: one step's G and D gradients from one state
+     bit for bit with the step without remat (cuDNN's deterministic
+     algorithms), 10 K1 + 8 K3 + 5 K2 + 4 K4 launches a step (the
+     recompute runs K1 / K3 again), 4 replays against 4 eager steps bit for
+     bit, step ms and peak memory each way at 256x256 and 512x512 batch 16,
+     and the largest batch of 1, 2, 4, 8, 16 at 1024x1024 that a step runs
+     each way (``remat_*`` lines);
   8. the train and eval CLIs, in-process through their ``main(argv)``, on
      a synthetic aligned dataset written from a numpy seed (144 + 4 pairs
      of 256x256 PNGs, 9 steps an epoch at batch 16): train 2 epochs with
@@ -108,12 +116,18 @@ Phases, each of which fails the run:
      + 4 K3 + 5 K2 + 4 K4 a rank a step on the strips' rows; then the same
      f32 gate and bf16 runs for CycleGAN (two full-width MixConvNeXtML,
      30 K1 + 24 K3 + 30 K2 + 24 K4 a rank a step), diffusion (nf 64, with
-     a 20-step DDIM sample on the strips) and resnet_9blocks under --norm
-     batch (``SP_RECIPES``; ``spatial_*`` lines);
+     a 20-step DDIM sample on the strips), resnet_9blocks under --norm
+     batch and the rest of the zoo at ngf 64 (``SP_ZOO``: unet_256 against
+     the pixel D, gll against the multiscale D, cascaded, unetpp and wnet
+     under --norm batch against the PatchGAN, unet_128 in CycleGAN against
+     the multiscale D) (``SP_RECIPES``; ``spatial_*`` lines); and the f32
+     pix2pix step under --remat, bit for bit with the step without it on
+     the ranks and in one process (10 K1 + 8 K3 + 5 K2 + 4 K4 a step);
  15. a step that cannot be captured must raise, not run eagerly;
  16. one JSON line of kernel numbers, then the result line.
 
 ``--out DIR`` also writes the per-shape numbers to DIR/chip_smoke.json.
+``--remat`` and ``--spatial`` run only their phase (after the build).
 ``--grad_spread N`` runs only one process's f32 first step at the spatial
 phase's config N times for each of its recipes and prints each weight's
 spread beside the halves' reading the spatial gate doubles (``grad_spread``).
@@ -222,8 +236,10 @@ FAULTS = ("rows", "sum", "tv")
 # (and each net's weights as one vector) within rel-L2 `grad` of one
 # process's, or within `noise` times the floor's reading on that weight
 # where that is larger. The floor is one process that sums the
-# InstanceNorm sums and K2/K4's sums over the image's two row halves, in
-# the order the two strips sum them (``_row_halves``): at 512² the first
+# InstanceNorm, BatchNorm, cascaded LayerNorm and channel-gate sums and
+# K2/K4's sums over the image's two row halves, in the order the two
+# strips sum them, and runs each conv on the halves as the strips run it
+# (``_row_halves``): at 512² the first
 # step's gradients of many weights cancel to ~1e-3 of their terms, and that
 # order alone moves them 1e-3 from one process's. The f32 runs take the
 # FMA check builds, erf GELU, TF32 off. Then the bf16 runs on the Hopper
@@ -241,13 +257,25 @@ SPATIAL = dict(size=512, batch=1, steps=2, timed=3, grad=1e-4, noise=2.0,
 # PatchGAN ndf 32 with BatchNorm (D on the fake and the real batch apart).
 # f32 takes SP_STEPS[False] steps, bf16 SP_STEPS[True]; each f32 run is
 # held by ``sp_gate`` on its SP_GATE_KEYS.
-SP_RECIPES = ("cycle_gan", "diffusion", "norm_batch")
+# The rest of the zoo (``SP_ZOO``: model, generator, discriminator, norm) at
+# ngf 64 against D ndf 32, pix2pix unless named: unet_256 against the pixel D,
+# gll against the multiscale D, cascaded, unetpp and wnet under --norm batch
+# against the PatchGAN, unet_128 in CycleGAN against the multiscale D.
+SP_ZOO = {"unet_pixel": ("pix2pix", "unet_256", "pixel", "instance"),
+          "gll_multi": ("pix2pix", "gll", "multi", "instance"),
+          "cascaded": ("pix2pix", "cascaded", "basic", "instance"),
+          "unetpp": ("pix2pix", "unetpp", "basic", "instance"),
+          "wnet_batch": ("pix2pix", "wnet", "basic", "batch"),
+          "cycle_unet_multi": ("cycle_gan", "unet_128", "multi", "instance")}
+SP_RECIPES = ("cycle_gan", "diffusion", "norm_batch") + tuple(SP_ZOO)
 SP_STEPS = {False: 1, True: 2}
-SP_GATE_KEYS = {"pix2pix": SPATIAL["keys"],
-                "cycle_gan": ("loss_G", "loss_G_A", "loss_cycle_A", "loss_idt_A", "loss_tv",
-                              "loss_D_A", "loss_D_B"),
-                "diffusion": ("loss_G",),
-                "norm_batch": ("loss_G", "loss_D", "loss_G_L1", "loss_ssim", "loss_tv")}
+_PIX2PIX_KEYS = ("loss_G", "loss_D", "loss_G_L1", "loss_ssim", "loss_tv")
+_CYCLE_KEYS = ("loss_G", "loss_G_A", "loss_cycle_A", "loss_idt_A", "loss_tv", "loss_D_A",
+               "loss_D_B")
+SP_GATE_KEYS = {"pix2pix": SPATIAL["keys"], "cycle_gan": _CYCLE_KEYS, "diffusion": ("loss_G",),
+                "norm_batch": _PIX2PIX_KEYS,
+                **{r: _CYCLE_KEYS if m == "cycle_gan" else _PIX2PIX_KEYS
+                   for r, (m, _, _, _) in SP_ZOO.items()}}
 # planted spatial-axis faults, each in the ranks alone: the halo rows zeroed;
 # the InstanceNorm statistics of the strip alone; K2's / K4's S sums not
 # summed over the row group; the fold dividing by the strip's H * W; the
@@ -255,11 +283,29 @@ SP_GATE_KEYS = {"pix2pix": SPATIAL["keys"],
 # one data row a sum over the data axis is its mean); BatchNorm counting its
 # strip's rows (times the data axis alone); diffusion's eps drawn per strip
 # (a strip-sized draw); each rank's pool drawing on its own (the bf16 ranks
-# no longer identical). RECIPE_FAULTS: the recipes each is planted in.
-SPATIAL_FAULTS = ("halo", "stats", "sums", "fold", "grads", "bn_count", "eps", "pool")
+# no longer identical); the cascaded LayerNorm's two sums over the strip
+# alone; CBAM's channel-gate mean over the strip alone; the 3x3 average
+# pool's divisor taken from the strip's own padding (each strip pooled as
+# if its edges were the image's). RECIPE_FAULTS: the recipes each is
+# planted in.
+SPATIAL_FAULTS = ("halo", "stats", "sums", "fold", "grads", "bn_count", "eps", "pool",
+                  "cascade_ln", "cbam_mean", "pool_divisor")
 RECIPE_FAULTS = {"halo": ("pix2pix",) + SP_RECIPES, "stats": ("pix2pix",),
                  "sums": ("pix2pix",), "fold": ("pix2pix",), "grads": ("pix2pix",) + SP_RECIPES,
-                 "bn_count": ("norm_batch",), "eps": ("diffusion",), "pool": ("cycle_gan",)}
+                 "bn_count": ("norm_batch", "wnet_batch"), "eps": ("diffusion",),
+                 "pool": ("cycle_gan",), "cascade_ln": ("cascaded",), "cbam_mean": ("unetpp",),
+                 "pool_divisor": ("gll_multi",)}
+# The remat phase (``remat_phase``): the training recipe of phase 6
+# (``bench.build``) with and without --remat. At `size` and `batch`: one
+# step's G and D gradients from one state, bit for bit under cuDNN's
+# deterministic algorithms, and its launches (REMAT_PER_STEP: K1 and K3
+# run again in the recompute); the replayed remat step against the eager
+# one (``replay_vs_eager``, GRAPH's fill and steps); at each of `sizes`
+# `warmup` + `steps` timed steps each way (step ms, peak memory); at `big`
+# the largest of `big_batches` whose step runs each way.
+REMAT = dict(size=256, batch=16, sizes=(256, 512), warmup=2, steps=3, big=1024,
+             big_batches=(1, 2, 4, 8, 16))
+REMAT_PER_STEP = {"K1": 10, "K3": 8, "K2": 5, "K4": 4}
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, f32 FLOP/s outside the tensor cores (the f32 kernel's FMA path).
 HBM_BPS = 3.35e12
@@ -1606,6 +1652,134 @@ def graph_phase(torch, np, bc, card, trials=0):
     return res, launches
 
 
+def _remat_grads(torch, bc, build, batches, lr):
+    """One step of ``build()``'s recipe on ``batches``: its G and D
+    gradients and its launches."""
+    state, step, _ = build()
+    zero_counts(bc)
+    step(state, *batches, lr)
+    torch.cuda.synchronize()
+    launches = read_counts(bc)
+    grads = {n: {k: q.grad.clone() for k, q in net.named_parameters() if q.grad is not None}
+             for n, net in (("netG", state.netG), ("netD", state.netD))}
+    return grads, launches
+
+
+def _remat_timed(torch, np, bc, remat, size, batch, warmup, steps, lr=2e-4):
+    """``warmup`` + ``steps`` steps of the training recipe at ``size`` and
+    ``batch``, with or without --remat: step ms, peak memory and the
+    launches a step; or why a step could not run (out of memory, or a
+    kernel refusing the shape)."""
+    from dsgan_tpu_torch import bench
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = None
+    try:
+        state, step, _ = bench.build(dev, size, True, torch.bfloat16, seed=0, remat=remat)
+        rng = np.random.default_rng(3)
+        ab = [torch.from_numpy(rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8))
+              .to(dev) for _ in range(2)]
+        for _ in range(warmup):
+            step(state, *ab, lr)
+        torch.cuda.synchronize()
+        zero_counts(bc)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            m, _ = step(state, *ab, lr)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        out = dict(step_ms=ms, img_per_s=batch / ms * 1e3,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                   launches={k: v // steps for k, v in read_counts(bc).items()},
+                   finite=all(math.isfinite(float(v)) for v in m.values()))
+    except torch.cuda.OutOfMemoryError as e:
+        out = dict(refused="out of memory", detail=str(e).split("\n")[0][:200])
+    except ValueError as e:  # a kernel's plan that cannot take the shape
+        out = dict(refused="kernel", detail=str(e)[:200])
+    finally:
+        del state
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return dict(remat=remat, size=size, batch=batch, **out)
+
+
+def remat_phase(torch, np, bc, card):
+    """--remat on the training recipe (``REMAT``): the gradients of one step
+    with and without it from one state, bit for bit under cuDNN's
+    deterministic algorithms, and its launches; its replays against its
+    eager steps; step ms and peak memory each way at each size; the largest
+    batch at ``REMAT["big"]`` each way (``remat_*`` lines)."""
+    from dsgan_tpu_torch import bench
+
+    dev = torch.device("cuda")
+    size, b, lr = REMAT["size"], REMAT["batch"], 2e-4
+    rng = np.random.default_rng(1)
+    batches = [torch.from_numpy(rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8))
+               .to(dev) for _ in range(2)]
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        runs = {remat: _remat_grads(torch, bc, lambda remat=remat: bench.build(
+            dev, size, True, torch.bfloat16, seed=0, remat=remat), batches, lr)
+            for remat in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    (want, plain), (got, launches) = runs[False], runs[True]
+    differ = [f"{n}.{k}" for n in want for k in want[n] if not torch.equal(got[n][k], want[n][k])]
+    grads = dict(batch=b, size=size, tensors=sum(len(v) for v in want.values()),
+                 differ=differ[:10], bitwise=not differ, launches=launches,
+                 launches_without=plain, card=card)
+    print(json.dumps({"remat_gradients": grads}))
+    del runs, want, got
+    torch.cuda.empty_cache()
+    problems = []
+    if differ:
+        problems.append(f"the remat step's gradients differ from the step's: {differ[:5]}")
+    if launches != REMAT_PER_STEP or plain != {"K1": 5, "K3": 4, "K2": 5, "K4": 4}:
+        problems.append(f"launches a step {launches} with remat, {plain} without: want "
+                        f"{REMAT_PER_STEP}")
+
+    graph, graph_launches, _ = replay_vs_eager(
+        torch, np, bc, lambda: bench.build(dev, size, True, torch.bfloat16, seed=0, remat=True),
+        b, size, GRAPH["fill"], GRAPH["steps"], REMAT_PER_STEP, "remat graph phase")
+    graph["card"] = card
+    print(json.dumps({"remat_graph_vs_eager": graph}))
+    torch.cuda.empty_cache()
+
+    timed = [_remat_timed(torch, np, bc, remat, s, b, REMAT["warmup"], REMAT["steps"])
+             for s in REMAT["sizes"] for remat in (False, True)]
+    for t in timed:
+        print(json.dumps({"remat_timed": dict(t, card=card)}))
+    for plain_t, remat_t in zip(timed[::2], timed[1::2]):
+        for t in (plain_t, remat_t):
+            if "refused" in t or not t["finite"]:
+                problems.append(f"remat {t['remat']} at {t['size']} batch {t['batch']}: {t}")
+        if "refused" in plain_t or "refused" in remat_t:
+            continue
+        # K2 / K4 run in chunks of images past their 32-bit indices
+        # (``block_core.image_chunks``), alike with and without remat
+        want = dict(plain_t["launches"], K1=REMAT_PER_STEP["K1"], K3=REMAT_PER_STEP["K3"])
+        if (remat_t["launches"] != want
+                or (plain_t["launches"]["K1"], plain_t["launches"]["K3"]) != (5, 4)):
+            problems.append(f"at {plain_t['size']}: launches {plain_t['launches']} without "
+                            f"remat, {remat_t['launches']} with")
+    largest = {}
+    for remat in (False, True):
+        tries = []
+        for batch in REMAT["big_batches"]:
+            tries.append(_remat_timed(torch, np, bc, remat, REMAT["big"], batch, 1, 1))
+            if "refused" in tries[-1]:
+                break
+        ran = [t["batch"] for t in tries if "refused" not in t]
+        largest[str(remat)] = dict(largest_batch=max(ran, default=0), tries=tries)
+    print(json.dumps({"remat_largest_batch": dict(size=REMAT["big"], card=card, **largest)}))
+    if problems:
+        fail("remat: " + "; ".join(problems))
+    return dict(gradients=grads, graph=graph, timed=timed, largest=largest), graph_launches
+
+
 def capture_must_fail(torch):
     """A step that reads a device value on the host cannot be captured:
     the chained step must raise rather than run it eagerly."""
@@ -2373,6 +2547,30 @@ def _sp_plant(fault):
                 super().__init__(pool_size, shape, dtype, device,
                                  seed + 1000 * (1 + torch.distributed.get_rank()))
         cycle_gan.ImagePool = PerRank
+    elif fault == "cascade_ln":
+        from dsgan_tpu_torch.models import generators_zoo
+
+        def strip_ln(self, x):  # the strip's mean and std
+            with spatial.replicated():
+                return cascade_ln(self, x)
+        cascade_ln = generators_zoo.CascadeLayerNorm.forward
+        generators_zoo.CascadeLayerNorm.forward = strip_ln
+    elif fault == "cbam_mean":
+        from dsgan_tpu_torch.models import blocks_extra
+
+        def strip_gate(self, x):  # the strip's mean; the maximum stays the image's
+            def mlp(v):
+                return self.fc2(self.relu1(self.fc1(v)))
+            from dsgan_tpu_torch import ops
+            return torch.sigmoid(mlp(x.mean(dim=(2, 3), keepdim=True))
+                                 + mlp(ops.adaptive_max_pool(x)))
+        blocks_extra.ChannelAttentionCBAM.forward = strip_gate
+    elif fault == "pool_divisor":
+        import torch.nn.functional as F
+
+        def strip_pool(x, window, stride, padding, count_include_pad, rows):
+            return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)
+        spatial.avg_pool2d = strip_pool
     elif fault is not None:
         fail(f"spatial: no planted fault {fault!r}: {SPATIAL_FAULTS}")
 
@@ -2391,65 +2589,158 @@ def _sp_batches(np):
     return [pairs[0]] * SPATIAL["steps"] + pairs[1:]
 
 
-def _row_halves(torch, bc):
-    """Patches that sum, in one process, the InstanceNorm sums of x and x^2,
-    K2's / K4's S sums and weight gradients and BatchNorm's sums of x and
-    (x - mean)^2 over the image's two row halves, as two strips sum them
-    (each half's sum, then the two added); a level of odd height, which the
-    strips gather, stays whole. For the comparison only: the port has no
-    such switch."""
+def _row_halves(torch, bc, n=2):
+    """Patches that sum, in one process, every cross-row sum of the spatial
+    axis over the image's ``n`` row blocks, as ``n`` strips sum them (each
+    block's sum, then the blocks' added in row order): the InstanceNorm sums
+    of x and x^2, K2's / K4's S sums and weight gradients, BatchNorm's sums
+    of x and (x - mean)^2, the cascaded LayerNorm's sums of x and of its
+    centred squares, and the global mean of the channel gates (CBAM's and
+    MixConvNeXtML's); and every convolution and transposed convolution
+    whose input and output heights ``n`` divides runs block by block on
+    the rows each block's output reads (zeros past the image), as the
+    strips run it, so that its weight gradient is the blocks' partial
+    sums added in row order and each block's shape is a strip's. A level
+    whose height ``n`` does not divide, which the strips gather, stays
+    whole. The average pools need no patch: a strip sums each window of
+    the fetched rows as one process does. For the comparison only: the
+    port has no such switch."""
     from unittest import mock
 
-    from dsgan_tpu_torch.models import layers
+    import torch.nn.functional as F
+
+    from dsgan_tpu_torch import ops
+    from dsgan_tpu_torch.models import generators_zoo, layers
     from dsgan_tpu_torch.ops import norm
 
     moments, bwd, bwd2 = norm.global_moments, bc.block_core_bwd, bc.block_core2_bwd
-    bn_stats = layers.BatchNorm2d._stats
+    bn_stats, avg_pool = layers.BatchNorm2d._stats, ops.adaptive_avg_pool
+    cascade_ln = generators_zoo.CascadeLayerNorm.forward
 
-    def halves(t):
-        h = t.shape[2] // 2
-        return [t.narrow(2, i * h, h).contiguous(memory_format=torch.channels_last)
-                for i in (0, 1)]
+    def blocks(t):
+        h = t.shape[2] // n
+        cl = t.is_contiguous(memory_format=torch.channels_last) and not t.is_contiguous()
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        return [t.narrow(2, i * h, h).contiguous(memory_format=fmt) for i in range(n)]
+
+    def total(t, dim):
+        """The sum of ``t`` over ``dim``, block by block, in row order."""
+        parts = [b.sum(dim=dim, keepdim=True) for b in blocks(t)]
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
 
     def split_moments(xf):
-        if xf.shape[2] % 2:
+        if xf.shape[2] % n:
             return moments(xf)
-        s = sum(torch.stack([t.sum(dim=(2, 3)), t.square().sum(dim=(2, 3))])
-                for t in halves(xf))
-        n = xf.shape[2] * xf.shape[3]
-        return s[0] / n, s[1] / n
+        c = xf.shape[2] * xf.shape[3]
+        return (total(xf, (2, 3))[:, :, 0, 0] / c, total(xf.square(), (2, 3))[:, :, 0, 0] / c)
 
     def split_bn(self, xf):
-        if self.mesh is not None or xf.shape[2] % 2:
+        if self.mesh is not None or xf.shape[2] % n:
             return bn_stats(self, xf)
-        n = xf.numel() // xf.shape[1]
-        mean = sum(t.sum(dim=(0, 2, 3)) for t in halves(xf)) / n
-        sq = sum((t - mean[:, None, None]).square().sum(dim=(0, 2, 3)) for t in halves(xf))
-        return mean, sq / n, n
+        c = xf.numel() // xf.shape[1]
+        mean = total(xf, (0, 2, 3)).reshape(-1) / c
+        sq = total((xf - mean[:, None, None]).square(), (0, 2, 3)).reshape(-1)
+        return mean, sq / c, c
+
+    def split_avg_pool(x):
+        if x.shape[2] % n:
+            return avg_pool(x)
+        return total(x, (2, 3)) / (x.shape[2] * x.shape[3])
+
+    def split_cascade_ln(self, x):
+        if x.shape[2] % n:
+            return cascade_ln(self, x)
+        xf = x.float()
+        c = x.shape[1] * x.shape[2] * x.shape[3]
+        mean = total(xf, (1, 2, 3)) / c
+        var = total((xf - mean).square(), (1, 2, 3)) / (c - 1)
+        y = (xf - mean) / (torch.sqrt(var) + self.eps)
+        return (self.gamma[:, None, None] * y + self.beta[:, None, None]).to(x.dtype)
 
     def split(fn, parts):
         """``fn`` (K2 / K4, whose ``parts`` leading inputs and cotangent are
-        per pixel, as are as many leading outputs) on each half."""
+        per pixel, as are as many leading outputs) on each block."""
         def run(*args, packed=None):
-            if args[0].shape[2] % 2:
+            if args[0].shape[2] % n:
                 return fn(*args, packed=packed)
-            cut = {j: halves(args[j]) for j in set(range(parts)) | {2 * parts}}
+            cut = {j: blocks(args[j]) for j in set(range(parts)) | {2 * parts}}
             outs = [fn(*[cut[j][i] if j in cut else a for j, a in enumerate(args)],
-                       packed=packed) for i in (0, 1)]
-            return ([torch.cat(o, 2) for o in zip(*(o[:parts] for o in outs))]
-                    + [a + b for a, b in zip(outs[0][parts:], outs[1][parts:])])
+                       packed=packed) for i in range(n)]
+            sums = list(outs[0][parts:])
+            for o in outs[1:]:
+                sums = [a + b for a, b in zip(sums, o[parts:])]
+            return [torch.cat(o, 2) for o in zip(*(o[:parts] for o in outs))] + sums
         return run
 
+    conv2d, conv_t = F.conv2d, F.conv_transpose2d
+
+    def pair(v):
+        return tuple(v) if isinstance(v, (tuple, list)) else (v, v)
+
+    def rows_of(x, first, count, fmt):
+        """Rows ``first`` .. ``first + count - 1`` of ``x``, zeros past its edges."""
+        lo, hi = max(first, 0), min(first + count, x.shape[2])
+        part = x.narrow(2, lo, hi - lo)
+        if lo - first or first + count - hi:
+            part = F.pad(part, (0, 0, lo - first, first + count - hi))
+        return part.contiguous(memory_format=fmt)
+
+    def fmt_of(x):
+        cl = x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
+        return torch.channels_last if cl else torch.contiguous_format
+
+    def split_conv(x, w, b=None, stride=1, padding=0, dilation=1, groups=1):
+        (sh, sw), kh = pair(stride), w.shape[2]
+        if (not w.requires_grad or isinstance(padding, str) or pair(dilation) != (1, 1)
+                or x.dim() != 4):  # a fixed window (SSIM's) is no layer of the nets
+            return conv2d(x, w, b, stride, padding, dilation, groups)
+        ph, pw = pair(padding)
+        h = x.shape[2]
+        ho = (h + 2 * ph - kh) // sh + 1
+        if h % n or ho % n:
+            return conv2d(x, w, b, stride, padding, dilation, groups)
+        per = ho // n
+        outs = [conv2d(rows_of(x, i * per * sh - ph, (per - 1) * sh + kh, fmt_of(x)), w, b,
+                       (sh, sw), (0, pw), 1, groups) for i in range(n)]
+        return torch.cat(outs, 2)
+
+    def split_conv_t(x, w, b=None, stride=1, padding=0, output_padding=0, groups=1,
+                     dilation=1):
+        (sh, sw), (ph, pw), (oh, ow), kh = pair(stride), pair(padding), pair(output_padding), \
+            w.shape[2]
+        h = x.shape[2]
+        ho = (h - 1) * sh - 2 * ph + kh + oh
+        if not w.requires_grad or pair(dilation) != (1, 1) or h % n or ho != sh * h:
+            return conv_t(x, w, b, stride, padding, output_padding, groups, dilation)
+        per = ho // n
+        outs = []
+        for i in range(n):
+            a = i * per
+            first = -((ph - kh + 1 + a) // -sh)
+            last = (a + per - 1 + ph) // sh
+            y = conv_t(rows_of(x, first, last - first + 1, fmt_of(x)), w, b, (sh, sw), (0, pw),
+                       (0, ow), groups, dilation)
+            outs.append(y.narrow(2, a + ph - sh * first, per))
+        return torch.cat(outs, 2)
+
     return [mock.patch.object(norm, "global_moments", split_moments),
+            mock.patch.object(F, "conv2d", split_conv),
+            mock.patch.object(F, "conv_transpose2d", split_conv_t),
             mock.patch.object(layers.BatchNorm2d, "_stats", split_bn),
+            mock.patch.object(ops, "adaptive_avg_pool", split_avg_pool),
+            mock.patch.object(generators_zoo.CascadeLayerNorm, "forward", split_cascade_ln),
             mock.patch.object(bc, "block_core_bwd", split(bwd, 2)),
             mock.patch.object(bc, "block_core2_bwd", split(bwd2, 4))]
 
 
 def _sp_run(torch, np, bc, mesh, recipe, dtype, use_vgg=False, timed=True, halves=False,
             steps=None, deterministic=None):
-    """One run of a recipe (``SP_RECIPES``): ``_sp_steps`` for pix2pix,
-    ``_sp_recipe_steps`` for the others; ``halves``: one process summing
+    """One run of a recipe (``SP_RECIPES``): ``_sp_steps`` for pix2pix
+    (and ``pix2pix_remat``, its G under --remat), ``_sp_recipe_steps`` for
+    the others; ``halves``: one process summing
     over the two row halves (``_row_halves``); ``deterministic``: cuDNN's
     deterministic algorithms (None: for the f32 runs, which the gate reads,
     so that one process's gradients repeat from run to run; under the
@@ -2464,8 +2755,9 @@ def _sp_run(torch, np, bc, mesh, recipe, dtype, use_vgg=False, timed=True, halve
     for p in patches:
         p.start()
     try:
-        if recipe == "pix2pix":
-            run = _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed, steps)
+        if recipe in ("pix2pix", "pix2pix_remat"):
+            run = _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed, steps,
+                            remat=recipe == "pix2pix_remat")
         else:
             run = _sp_recipe_steps(torch, np, bc, mesh, recipe, dtype, steps)
     finally:
@@ -2481,7 +2773,7 @@ def _nets_state(nets):
             for n, net in nets.items()}
 
 
-def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed, steps=None):
+def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed, steps=None, remat=False):
     """The spatial recipe's gated steps, then (``timed``) its timed steps,
     on this rank's strip (the whole image without a mesh), from the state
     built from seed 0, in ``dtype`` (f32: the FMA check builds, erf GELU;
@@ -2496,7 +2788,8 @@ def _sp_steps(torch, np, bc, mesh, dtype, use_vgg, timed, steps=None):
     dev, lr, size = torch.device("cuda"), 2e-4, SPATIAL["size"]
     cfg = pix2pix.Pix2PixConfig(pool_size=0, use_vgg=use_vgg, w_vgg=1.0 if use_vgg else 0.0,
                                 compute_dtype=None if dtype == torch.float32 else dtype)
-    G = define_G(3, 3, 32, "MixConvNeXtML", dtype=dtype, device=dev, seed=0, train=True)
+    G = define_G(3, 3, 32, "MixConvNeXtML", dtype=dtype, device=dev, seed=0, train=True,
+                 remat=remat)
     D = define_D(6, 32, "basic", dtype=dtype, device=dev, seed=1)
     vgg = define_vgg(4, dtype=dtype, device=dev, seed=2) if use_vgg else None
     rows = size // (mesh.spatial if mesh is not None else 1)
@@ -2555,10 +2848,11 @@ def _fill_pools(torch, state, mesh):
 
 
 def _sp_recipe(torch, recipe, mesh, dtype):
-    """One of SP_RECIPES at full width on the card, built from seed 0 on
-    this rank's strip (the whole image without a mesh), in ``dtype`` (f32:
-    its pools empty, 0 images; bf16: CycleGAN's pools of SPATIAL["pool"],
-    full): (state, step returning (metrics, out), {name: network})."""
+    """One of SP_RECIPES at full width on the card (the zoo's at ngf 64, D
+    ndf 32, dropout off), built from seed 0 on this rank's strip (the whole
+    image without a mesh), in ``dtype`` (f32: its pools empty, 0 images;
+    bf16: the CycleGAN recipes' pools of SPATIAL["pool"], full): (state,
+    step returning (metrics, out), {name: network})."""
     from dsgan_tpu_torch.models import cycle_gan, define_D, define_G, diffusion, pix2pix
     from dsgan_tpu_torch.models.layers import set_batchnorm_mesh
 
@@ -2582,13 +2876,30 @@ def _sp_recipe(torch, recipe, mesh, dtype):
         step = diffusion.make_diffusion_train_step(cfg, mesh)
         return (diffusion.init_state(net, cfg, seed=0),
                 lambda s, a, b, lr: (step(s, a, b, lr), None), {"net": net})
-    if recipe != "norm_batch":
+    if recipe in SP_ZOO and SP_ZOO[recipe][0] == "cycle_gan":
+        _, which_g, which_d, norm = SP_ZOO[recipe]
+        cfg = cycle_gan.CycleGANConfig(pool_size=SPATIAL["pool"] if bf16 else 0,
+                                       lambda_identity=0.5)
+        nets = [define_G(3, 3, 64, which_g, norm=norm, use_dropout=False, dtype=dtype,
+                         device=dev, seed=i, train=True) for i in range(2)]
+        nets += [define_D(3, 32, which_d, norm=norm, dtype=dtype, device=dev, seed=2 + i)
+                 for i in range(2)]
+        state = cycle_gan.init_state(*nets, cfg, (rows, size), seed=0)
+        if bf16:
+            _fill_pools(torch, state, mesh)
+        return state, cycle_gan.make_cyclegan_step(cfg, mesh), dict(zip(cycle_gan.NETS, nets))
+    if recipe == "norm_batch":
+        which_g, which_d, norm = "resnet_9blocks", "basic", "batch"
+    elif recipe in SP_ZOO:
+        _, which_g, which_d, norm = SP_ZOO[recipe]
+    else:
         fail(f"spatial: no recipe {recipe!r}")
-    G = define_G(3, 3, 64, "resnet_9blocks", norm="batch", dtype=dtype, device=dev, seed=0,
-                 train=True)
-    D = define_D(6, 32, "basic", norm="batch", dtype=dtype, device=dev, seed=1)
+    G = define_G(3, 3, 64, which_g, norm=norm, use_dropout=False, dtype=dtype, device=dev,
+                 seed=0, train=True)
+    D = define_D(6, 32, which_d, norm=norm, dtype=dtype, device=dev, seed=1)
     cfg = pix2pix.Pix2PixConfig(pool_size=0, use_vgg=False, w_vgg=0.0,
-                                compute_dtype=dtype if bf16 else None, fuse_d_batch=False)
+                                compute_dtype=dtype if bf16 else None,
+                                fuse_d_batch=norm != "batch")
     state = pix2pix.init_state(G, D, None, cfg, (rows, size), seed=0)
     if mesh is not None:
         for net in (G, D):
@@ -2655,14 +2966,18 @@ def _sp_keys(fault=None):
     """The runs a spatial rank makes, (key, recipe, dtype name, VGG): every
     run clean; with ``fault`` the f32 runs of the recipes it is planted in
     (``RECIPE_FAULTS``), and CycleGAN's bf16 run for the pool's."""
-    runs = [("f32", "pix2pix", "f32", False), ("bf16", "pix2pix", "bf16", False),
-            ("bf16_vgg", "pix2pix", "bf16", True)]
+    runs = [("f32", "pix2pix", "f32", False), ("f32_remat", "pix2pix_remat", "f32", False),
+            ("bf16", "pix2pix", "bf16", False), ("bf16_vgg", "pix2pix", "bf16", True)]
     runs += [(f"{r}_{d}", r, d, False) for r in SP_RECIPES for d in ("f32", "bf16")]
     if fault is None:
         return runs
     if fault == "pool":
         return [k for k in runs if k[0] == "cycle_gan_bf16"]
     return [k for k in runs if k[2] == "f32" and k[1] in RECIPE_FAULTS[fault]]
+
+
+def _is_remat(key):
+    return key.endswith("_remat")
 
 
 def _sp_rank(rank, out, fault=None):
@@ -2766,9 +3081,22 @@ def _identical(torch, r0, r1):
         for n in r0["params"] for k in r0["params"][n])
 
 
+def _same_step(torch, a, b):
+    """What differs between two runs' metrics, first-step gradients and
+    states, bit for bit: [] where nothing does."""
+    differ = [k for k in a["metrics"][0] if any(x[k] != y[k] for x, y in
+                                                zip(a["metrics"], b["metrics"]))]
+    for part in ("grads", "params"):
+        differ += [f"{part}.{n}.{k}" for n in b[part] for k in b[part][n]
+                   if not torch.equal(a[part][n][k], b[part][n][k])]
+    return differ
+
+
 def _sp_per(key):
     """K1-K4 launches a step of a run (``_sp_keys``): pix2pix's 5/4/5/4,
     CycleGAN's CYCLE_PER_STEP, none for diffusion and resnet_9blocks."""
+    if _is_remat(key):
+        return REMAT_PER_STEP
     if key in ("f32", "bf16", "bf16_vgg"):
         return {"K1": 5, "K3": 4, "K2": 5, "K4": 4}
     return CYCLE_PER_STEP if key.startswith("cycle_gan") else {k: 0 for k in CYCLE_PER_STEP}
@@ -2784,6 +3112,35 @@ def _sp_gates(torch, runs, one, halves):
             out[recipe] = sp_gate(torch, runs[key], one[key], halves[recipe],
                                   SP_GATE_KEYS[recipe])
     return out
+
+
+def avg_pool_check(torch):
+    """The 3x3 stride-2 average pool's input gradient (gll's and the
+    multiscale D's pyramids) on a channels_last card tensor against the
+    CPU's: through ``ops.avg_pool2d`` (which must agree), and torch's own
+    pool on that layout, read for the record (wrong on torch 2.11 + CUDA
+    12.8: ``ops.pool_avg``)."""
+    import torch.nn.functional as F
+
+    from dsgan_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn((1, 6, SPATIAL["size"], SPATIAL["size"]), generator=gen)
+    g = torch.randn((1, 6, SPATIAL["size"] // 2, SPATIAL["size"] // 2), generator=gen)
+
+    def grad(fn, t):
+        t = t.detach().clone().requires_grad_(True)
+        fn(t, 3, 2, 1, count_include_pad=False).backward(g.to(t.device))
+        return t.grad.cpu()
+
+    want = grad(F.avg_pool2d, x)
+    card = x.cuda().contiguous(memory_format=torch.channels_last)
+    res = {name: rel_l2(grad(fn, card), want)
+           for name, fn in (("ops_avg_pool2d", ops.avg_pool2d), ("torch_avg_pool2d", F.avg_pool2d))}
+    print(json.dumps({"avg_pool_channels_last_grad_vs_cpu": res}))
+    if not res["ops_avg_pool2d"] <= 1e-6:
+        fail(f"ops.avg_pool2d's gradient on the card is off the CPU's: {res}")
+    return res
 
 
 def spatial_phase(torch, np, bc, card, faults=()):
@@ -2804,6 +3161,7 @@ def spatial_phase(torch, np, bc, card, faults=()):
     longer identical)."""
     from dsgan_tpu_torch.ops import instance_stats
 
+    pool_check = avg_pool_check(torch)
     kernel_rows = (check_kernels(torch, bc, instance_stats, SPATIAL["batch"], torch.bfloat16,
                                  "tanh", TOL_BF16, 3, sites=_sp_sites())
                    + check_backward(torch, bc, instance_stats, SPATIAL["batch"], torch.bfloat16,
@@ -2814,7 +3172,7 @@ def spatial_phase(torch, np, bc, card, faults=()):
         torch.cuda.empty_cache()
         dtype = torch.float32 if dname == "f32" else torch.bfloat16
         one[key] = _sp_run(torch, np, bc, None, recipe, dtype, vgg, timed=dname != "f32")
-        if dname == "f32":
+        if dname == "f32" and not _is_remat(key):
             torch.cuda.empty_cache()
             halves[recipe] = _sp_run(torch, np, bc, None, recipe, dtype, timed=False,
                                      halves=True)
@@ -2847,11 +3205,20 @@ def spatial_phase(torch, np, bc, card, faults=()):
                 distances[f"{recipe}_{a}_vs_{b}_{n}"] = (max(each, key=each.get),
                                                          max(each.values()), every)
     res = dict(card=card, size=SPATIAL["size"], batch=SPATIAL["batch"], mesh=[1, 2],
+               avg_pool_check=pool_check,
                gates={r: dict(gate=t, over=o) for r, (t, o) in gates.items()},
                spawn_s=spawn_s, runs={}, distances=distances, kernel_rows=kernel_rows,
                seconds={k: dict(one_process=one[k]["seconds"], rank0=ranks[0][k]["seconds"],
                                 rank1=ranks[1][k]["seconds"]) for k in one})
     problems = [f"{r} f32 gate: {k} {t[k]}" for r, (t, o) in gates.items() for k in o]
+    # --remat on the strips and in one process: the f32 step bit for bit
+    # with the step without it
+    remat = {who: _same_step(torch, run["f32_remat"], run["f32"])
+             for who, run in (("one_process", one), ("rank0", ranks[0]), ("rank1", ranks[1]))
+             if "f32_remat" in run}
+    res["remat_vs_no_remat"] = remat
+    problems += [f"--remat's f32 step differs from the step without it ({who}): {d[:4]}"
+                 for who, d in remat.items() if d]
     launches = {k: 0 for k in CYCLE_PER_STEP}
     for key, recipe, dname, _ in keys:
         r0, r1 = ranks[0][key], ranks[1][key]
@@ -2898,7 +3265,8 @@ def spatial_phase(torch, np, bc, card, faults=()):
         if dname != "f32":
             launches = {k: launches[k] + r0["launches"][k] + r1["launches"][k] for k in launches}
     print(json.dumps({"spatial_f32_gates": dict(card=card, gates=res["gates"],
-                                                distances=distances)}))
+                                                distances=distances,
+                                                remat_vs_no_remat=res["remat_vs_no_remat"])}))
     if faults:
         print(json.dumps({"spatial_faults": dict(card=card, over=planted)}))
         missed = [f"{f} ({r})" for f, o in planted.items() for r, v in o.items()
@@ -2986,6 +3354,8 @@ def main(argv=None):
     ap.add_argument("--dp_faults", action="store_true",
                     help="only run the data-parallel comparison, then once with each of FAULTS "
                          "planted in the ranks, which its gate must fail, and exit")
+    ap.add_argument("--remat", action="store_true",
+                    help="only run the --remat phase (remat_phase), and exit")
     ap.add_argument("--spatial", action="store_true",
                     help="only run the spatial-axis phase (spatial_phase), and exit")
     ap.add_argument("--spatial_faults", action="store_true",
@@ -3061,6 +3431,15 @@ def main(argv=None):
         grad_spread(torch, np, bc, card, args.grad_spread, args.out)
         print(f"chip_smoke: the gradient spread took {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.remat:
+        _card_flags(torch)
+        res, _ = remat_phase(torch, np, bc, card)
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke_remat.json"), "w") as f:
+                json.dump(res, f, indent=1)
+        print(f"chip_smoke: the remat phase passed in {time.perf_counter() - t_start:.1f} s")
+        return 0
     if args.spatial or args.spatial_faults:
         _card_flags(torch)
         res, _ = spatial_phase(torch, np, bc, card,
@@ -3087,6 +3466,7 @@ def main(argv=None):
     exported, export_launches = export_phase(torch, np, bc, serve_mod, define_G, card)
     training, train_launches = train_phase(torch, np, bc, card)
     graphed, graph_launches = graph_phase(torch, np, bc, card)
+    remat, remat_launches = remat_phase(torch, np, bc, card)
     cli, cli_launches = cli_phase(torch, np, bc, card)
     zoo = zoo_phase(torch, np, bc, card)
     cyclegan, cycle_launches = cyclegan_phase(torch, np, bc, card)
@@ -3111,7 +3491,7 @@ def main(argv=None):
             replaces=f"dsgan_tpu/pallas/block_core.py:{line}",
             launches=(serve_launches[name] + export_launches[name] + train_launches[name]
                       + graph_launches[name] + cli_launches[name] + cycle_launches[name]
-                      + dp_launches[name] + sp_launches[name]),
+                      + dp_launches[name] + sp_launches[name] + remat_launches[name]),
             max_abs_err=max(r["max_abs_err"] for r in bf16),
             ms=sum(r["ms"] for r in main), plain_ms=sum(r["plain_ms"] for r in main),
             bound_ms=sum(r["bound_ms"] for r in main),
@@ -3122,7 +3502,8 @@ def main(argv=None):
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
                            generator_agreement=agree, export=exported, training=training,
-                           graph=graphed, cli=cli, zoo=zoo, cyclegan=cyclegan, fid=fid,
+                           graph=graphed, remat=remat, cli=cli, zoo=zoo, cyclegan=cyclegan,
+                           fid=fid,
                            diffusion=diff, dp=dp, spatial=sp, kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -30,13 +30,15 @@ from dsgan_tpu_torch.device import card_info, resolve_device
 WARMUP = 3
 
 
-def build(dev, size, use_vgg, dtype, seed=0):
-    """The default recipe on ``dev``: (train state, step, config)."""
+def build(dev, size, use_vgg, dtype, seed=0, remat=False):
+    """The default recipe on ``dev``: (train state, step, config); ``remat``
+    as ``define_G``'s (``--remat``)."""
     from dsgan_tpu_torch.models import define_D, define_G, define_vgg
     from dsgan_tpu_torch.models.pix2pix import Pix2PixConfig, init_state, make_train_step
 
     cfg = Pix2PixConfig(pool_size=50, use_vgg=use_vgg, compute_dtype=dtype)
-    netG = define_G(3, 3, 32, "MixConvNeXtML", dtype=dtype, device=dev, seed=seed, train=True)
+    netG = define_G(3, 3, 32, "MixConvNeXtML", dtype=dtype, device=dev, seed=seed, train=True,
+                    remat=remat)
     netD = define_D(6, 32, "basic", dtype=dtype, device=dev, seed=seed + 1)
     vgg = define_vgg(4, dtype=dtype, device=dev, seed=seed + 2) if use_vgg else None
     return init_state(netG, netD, vgg, cfg, (size, size), seed=seed), make_train_step(cfg), cfg

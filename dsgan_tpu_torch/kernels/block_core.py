@@ -737,29 +737,77 @@ def _bwd_pack(w1, b1, w2, ws, dtype, c1=None):
     return pack_weights(w1, b1, w2, w2.new_zeros(w2.shape[1]), ws, dtype, c1=c1)
 
 
+def image_chunks(b, hw, cp, h4p, pp, bf16=True):
+    """The images [i, j) of each launch K2 / K4 take a batch of ``b`` in:
+    the Hopper kernels index each of their matrices with 32 bits
+    (``k4_plan``), so a batch whose B * HW rows reach 2^31 elements in one
+    of them (uc4 at 1024x1024 from 4 images) runs as several launches of
+    as many images as fit; the f32 check build in one."""
+    per = (2 ** 31 - 1) // (hw * max(cp, h4p, pp)) if bf16 else b
+    if per < 1:
+        raise ValueError(f"block core K4 takes fewer than 2^31 elements a matrix: one image "
+                         f"of {hw} pixels gives {hw * max(cp, h4p, pp)}")
+    return [(i, min(i + per, b)) for i in range(0, b, per)]
+
+
+def in_chunks(run, chunks, per_image):
+    """``run(i, j)`` (K2's or K4's outputs on images [i, j)) over
+    ``chunks``, joined: the outputs ``per_image`` (dn, dx, the S sums)
+    along the batch, the weight gradients summed in chunk order."""
+    outs = [run(i, j) for i, j in chunks]
+    if len(outs) == 1:
+        return outs[0]
+    joined = []
+    for k, parts in enumerate(zip(*outs)):
+        if k in per_image:
+            t = torch.cat(parts, 0)
+            joined.append(t.contiguous(memory_format=CL) if t.dim() == 4 else t)
+        else:
+            total = parts[0]
+            for t in parts[1:]:
+                total = total + t
+            joined.append(total)
+    return tuple(joined)
+
+
+def _chunks_of(h, packed):
+    cp, h4p = packed.w1.shape
+    return image_chunks(h.shape[0], h.shape[2] * h.shape[3], cp, h4p, packed.w2.shape[1],
+                        h.dtype == torch.bfloat16)
+
+
 def block_core_bwd(h, x, mean, rsig, g, w1, b1, w2, ws, gelu="tanh", packed=None):
     """K2: the backward of ``block_core`` at the cotangent ``g`` (B, P, H, W).
-    Returns what ``block_core_bwd_reference`` returns."""
+    Returns what ``block_core_bwd_reference`` returns. A batch past the
+    kernel's 32-bit indices runs in chunks of images (``image_chunks``),
+    each a launch."""
     if h.device.type == "cpu":
         return block_core_bwd_reference(h, x, mean, rsig, g, w1, b1, w2, ws, gelu)
     if packed is None:
         packed = _bwd_pack(w1, b1, w2, ws, h.dtype)
-    out = _launch_bwd([(h, x, mean, rsig)], g, packed, gelu)
-    block_core_bwd.launches += 1
-    return out
+
+    def run(i, j):
+        out = _launch_bwd([(h[i:j], x[i:j], mean[i:j], rsig[i:j])], g[i:j], packed, gelu)
+        block_core_bwd.launches += 1
+        return out
+    return in_chunks(run, _chunks_of(h, packed), (0, 1, 7, 8))
 
 
 def block_core2_bwd(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws, gelu="tanh",
                     packed=None):
     """K4: the backward of ``block_core2``. Returns what
-    ``block_core2_bwd_reference`` returns."""
+    ``block_core2_bwd_reference`` returns; in chunks of images as K2."""
     if ha.device.type == "cpu":
         return block_core2_bwd_reference(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws, gelu)
     if packed is None:
         packed = _bwd_pack(w1, b1, w2, ws, ha.dtype, c1=ha.shape[1])
-    out = _launch_bwd([(ha, xa, ma, ra), (hb, xb, mb, rb)], g, packed, gelu)
-    block_core2_bwd.launches += 1
-    return out
+
+    def run(i, j):
+        out = _launch_bwd([(ha[i:j], xa[i:j], ma[i:j], ra[i:j]), (hb[i:j], xb[i:j], mb[i:j],
+                                                                  rb[i:j])], g[i:j], packed, gelu)
+        block_core2_bwd.launches += 1
+        return out
+    return in_chunks(run, _chunks_of(ha, packed), (0, 1, 2, 3, 9, 10, 11, 12))
 
 
 # Launches of each kernel since the last reset (a caller sets them to 0).

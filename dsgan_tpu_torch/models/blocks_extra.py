@@ -19,22 +19,28 @@ The JAX package's choices stand:
 * these blocks' LeakyReLUs take torch's default slope, 0.01;
 * FENNet runs stage 1 -> AvgPool(3, 2, 1) -> WNet(128), the evident
   pipeline of a class the reference leaves without a forward.
-Layers cast their weights to the input's dtype at use.
+Layers cast their weights to the input's dtype at use. On a strip of the
+spatial axis (``parallel.spatial``) CBAM's global mean and max reduce over
+the row group (``ops.adaptive_avg_pool`` / ``adaptive_max_pool``), the
+pools run through ``ops``, a reflect pad hands its rows to the conv after
+it (``spatial.sequential``) and WNet's levels through ``spatial.Levels``.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.models.generators_zoo import _Generator
 from dsgan_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
+    MaxPool2d,
     Norm,
     Pad,
     PReLU,
-    pad2d,
 )
+from dsgan_tpu_torch.parallel import spatial
 
 
 class ChannelAttentionCBAM(nn.Module):
@@ -51,8 +57,7 @@ class ChannelAttentionCBAM(nn.Module):
         def mlp(v):
             return self.fc2(self.relu1(self.fc1(v)))
 
-        return torch.sigmoid(mlp(x.mean(dim=(2, 3), keepdim=True))
-                             + mlp(x.amax(dim=(2, 3), keepdim=True)))
+        return torch.sigmoid(mlp(ops.adaptive_avg_pool(x)) + mlp(ops.adaptive_max_pool(x)))
 
 
 class SpatialAttentionCBAM(nn.Module):
@@ -91,7 +96,7 @@ class ConvDBlock(nn.Module):
         super().__init__()
         self.ConvD = nn.Sequential(
             Conv2d(in_channels, out_channels, kernel, padding=pad), Norm(norm, out_channels),
-            nn.LeakyReLU(), nn.MaxPool2d(2), Conv2d(out_channels, out_channels, 3, padding=1),
+            nn.LeakyReLU(), MaxPool2d(2), Conv2d(out_channels, out_channels, 3, padding=1),
             Norm(norm, out_channels), nn.LeakyReLU())
 
     def forward(self, x):
@@ -158,10 +163,10 @@ class UnetPlusPlus(_Generator):
         self.conv2_3, self.att2_3 = ConvUBlock(w, output_nc, norm), CBAMBlock(output_nc, 1)
         self.conv1_2, self.att1_2 = ConvNBlock(input_nc, output_nc, norm), CBAMBlock(output_nc, 1)
         self.conv = Conv2d(output_nc, output_nc, 3, padding=1)
+        self.pad = Pad(3)
 
     def _forward(self, x):
-        h = pad2d(x, 3)
-        c21 = self.att2_1(self.conv2_1(h))
+        c21 = self.att2_1(spatial.sequential([self.pad, *self.conv2_1.ConvD], x))
         c31 = self.att3_1(self.conv3_1(c21))
         c41 = self.att4_1(self.conv4_1(c31))
         c42 = self.att4_2(self.conv4_2(c41))
@@ -187,10 +192,13 @@ class ResDecoderBlockCBAM(nn.Module):
         self.conv2, self.norm2 = Conv2d(inplanes, planes, 3), Norm(norm, planes)
         self.cbam2 = CBAMBlock(planes)
         self.shortcut, self.norm_s = Conv2d(inplanes, planes, 1), Norm(norm, planes)
+        self.pad = Pad(1)
 
     def forward(self, x):
-        h = self.cbam1(F.leaky_relu(self.norm1(self.conv1(pad2d(x, 1))), 0.01))
-        r = self.cbam2(F.leaky_relu(self.norm2(self.conv2(pad2d(h, 1))), 0.01))
+        h = self.cbam1(F.leaky_relu(self.norm1(spatial.sequential([self.pad, self.conv1], x)),
+                                    0.01))
+        r = self.cbam2(F.leaky_relu(self.norm2(spatial.sequential([self.pad, self.conv2], h)),
+                                    0.01))
         s = F.leaky_relu(self.norm_s(self.shortcut(x)), 0.01)
         return r + s
 
@@ -221,19 +229,23 @@ class WNet(_Generator):
             self.add_module(name, nn.Sequential(conv, Norm(norm, cout), self.activate))
 
     def _forward(self, x):
-        def pool(t):
-            return F.max_pool2d(t, 2)
-
+        """On a strip, a level whose height does not split over the row
+        group runs whole (``spatial.Levels``)."""
+        lv = spatial.Levels(x.shape[2], 3)
         e11 = self.en_down_1_1(x)
-        e21 = self.en_down_2_1(pool(e11))
-        e31 = self.en_down_3_1(pool(e21))
-        eu22 = self.en_up_2_2(e31) + e21
-        eu12 = self.en_up_1_2(eu22) + e11
+        with lv.at(1):
+            e21 = self.en_down_2_1(lv.pool(e11, 0))
+        with lv.at(2):
+            e31 = self.en_down_3_1(lv.pool(e21, 1))
+        eu22 = lv.up(self.en_up_2_2, e31, 2) + e21
+        eu12 = lv.up(self.en_up_1_2, eu22, 1) + e11
         d11 = self.de_down_1_1(eu12) + e11
-        d21 = self.de_down_2_1(pool(d11)) + e21 + eu22
-        d31 = self.de_down_3_1(pool(d21)) + e31
-        du22 = self.de_up_2_2(d31) + d21 + e21 + eu22
-        du12 = self.de_up_1_2(du22) + e11 + eu12 + d11
+        with lv.at(1):
+            d21 = self.de_down_2_1(lv.pool(d11, 0)) + e21 + eu22
+        with lv.at(2):
+            d31 = self.de_down_3_1(lv.pool(d21, 1)) + e31
+        du22 = lv.up(self.de_up_2_2, d31, 2) + d21 + e21 + eu22
+        du12 = lv.up(self.de_up_1_2, du22, 1) + e11 + eu12 + d11
         return self.de_up_1_3(du12)
 
 
@@ -253,7 +265,8 @@ class FENNet(_Generator):
         self.wnet = WNet(64, 128, norm)
 
     def _forward(self, x):
-        h = self.stage1_prelu1(self.stage1_norm1(self.stage1_conv1(self.stage1_pad(x))))
+        h = spatial.sequential([self.stage1_pad, self.stage1_conv1], x)
+        h = self.stage1_prelu1(self.stage1_norm1(h))
         h = self.stage1_prelu2(self.stage1_norm2(self.stage1_conv2(h)))
-        h = F.avg_pool2d(h, 3, 2, 1, count_include_pad=False)
+        h = ops.avg_pool2d(h, 3, 2, 1, count_include_pad=False)
         return self.wnet._forward(h)

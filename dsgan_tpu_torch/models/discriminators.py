@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.models.layers import Conv2d, Norm, norm_uses_bias
 from dsgan_tpu_torch.parallel import spatial
 
@@ -83,6 +84,8 @@ class PixelDiscriminator(_Discriminator):
         self.conv2 = Conv2d(ndf * 2, 1, 1, bias=bias)
 
     def forward(self, x):
+        """On a strip every layer runs on its rows (1x1 convs; the norm's
+        statistics over the row group): the logits are a strip."""
         in_dtype = x.dtype
         h = F.leaky_relu(self.conv0(x.to(self.compute_dtype or in_dtype)), 0.2)
         h = F.leaky_relu(self.norm1(self.conv1(h)), 0.2)
@@ -127,11 +130,22 @@ class MultiscaleDiscriminator(_Discriminator):
             self.add_module(f"scale{i}", NLayerMulti(input_nc, ndf, n_layers, norm))
 
     def forward(self, x):
+        """On a strip of the spatial axis the input is gathered once and
+        every scale runs whole on every rank: its k4 p2 convs give heights
+        H / 2 + 1 that never split. The loss takes each rank's share of the
+        whole logits (``spatial.mean``)."""
         in_dtype = x.dtype
         h = x.to(self.compute_dtype or in_dtype)
+        if spatial.active() is None:
+            return self._scales(h, in_dtype)
+        h = spatial.gather(h)
+        with spatial.replicated():
+            return self._scales(h, in_dtype)
+
+    def _scales(self, h, in_dtype):
         out = []
         for i in range(self.num_d):
             out.append([self._out(getattr(self, f"scale{self.num_d - 1 - i}")(h), in_dtype)])
             if i != self.num_d - 1:
-                h = F.avg_pool2d(h, 3, 2, 1, count_include_pad=False)
+                h = ops.avg_pool2d(h, 3, 2, 1, count_include_pad=False)
         return out

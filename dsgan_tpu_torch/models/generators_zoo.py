@@ -17,12 +17,20 @@ the input's dtype), its layers casting their weights at use, and returns
 the input's dtype, as the JAX modules do. The reference's ``cascaded``
 forward has no return statement (networks.py:881); here, as in the JAX
 package, it returns its final conv.
+
+On a strip of the spatial axis (``parallel.spatial``) each network runs
+its Sequentials through ``spatial.sequential`` (a pad handed to its conv,
+a level whose height does not split computed whole and its rows taken
+back after the transposed conv that splits again), its pools and resizes
+through ``ops``, and ``cascaded`` its pyramid through ``spatial.Levels``
+and its LayerNorm's two sums over the row group.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
@@ -124,10 +132,14 @@ class UnetSkipConnectionBlock(nn.Module):
         self.model = nn.Sequential(*layers)
 
     def forward(self, x):
+        """On a strip, where a down conv's output height does not split
+        (the innermost levels) the level and those inside it run whole and
+        the transposed conv's output, which splits again, is taken back:
+        the skip's concat joins two strips."""
         if self.outermost:
-            return self.model(x)
+            return spatial.sequential(self.model, x)
         h = self.model[0](x)
-        return torch.cat([h, self.model[1:](h)], 1)
+        return torch.cat([h, spatial.sequential(self.model[1:], h)], 1)
 
 
 class UnetGenerator(_Generator):
@@ -195,18 +207,20 @@ class LocalEnhancer(_Generator):
     def _forward(self, x):
         pyramid = [x]
         for _ in range(self.n_le):
-            pyramid.append(F.avg_pool2d(pyramid[-1], 3, 2, 1, count_include_pad=False))
-        out = self.model(pyramid[-1])
+            pyramid.append(ops.avg_pool2d(pyramid[-1], 3, 2, 1, count_include_pad=False))
+        out = spatial.sequential(self.model, pyramid[-1])
         for n in range(1, self.n_le + 1):
-            h = getattr(self, f"model{n}_1")(pyramid[self.n_le - n])
-            out = getattr(self, f"model{n}_2")(h + out)
+            h = spatial.sequential(getattr(self, f"model{n}_1"), pyramid[self.n_le - n])
+            out = spatial.sequential(getattr(self, f"model{n}_2"), h + out)
         return out
 
 
 class CascadeLayerNorm(nn.Module):
     """The cascaded net's whole-sample LayerNorm (networks.py:703-725): mean
     and std over all of a sample's C, H, W (std with Bessel's correction,
-    eps added to the std), then a per-channel affine; in f32."""
+    eps added to the std), then a per-channel affine; in f32. On a strip
+    the sum of x and then that of the centred squares are summed over the
+    row group, and the count is the image's C * H * W."""
 
     def __init__(self, num_features, eps=1e-12):
         super().__init__()
@@ -216,9 +230,14 @@ class CascadeLayerNorm(nn.Module):
 
     def forward(self, x):
         xf = x.float()
-        n = x.shape[1] * x.shape[2] * x.shape[3]
-        mean = xf.mean(dim=(1, 2, 3), keepdim=True)
-        var = (xf - mean).square().sum(dim=(1, 2, 3), keepdim=True) / (n - 1)
+        rows = spatial.active()
+        n = x.shape[1] * x.shape[2] * (rows.size if rows else 1) * x.shape[3]
+        if rows is None:
+            mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+        else:
+            mean = spatial.sum_rows(xf.sum(dim=(1, 2, 3), keepdim=True), rows) / n
+        var = spatial.sum_rows((xf - mean).square().sum(dim=(1, 2, 3), keepdim=True), rows) / (
+            n - 1)
         y = (xf - mean) / (torch.sqrt(var) + self.eps)
         return (self.gamma[:, None, None] * y + self.beta[:, None, None]).to(x.dtype)
 
@@ -246,16 +265,17 @@ class CascadedGenerator(_Generator):
         self.conv_out = Conv2d(prev + input_nc, output_nc, 3, 1, 1)
 
     def _forward(self, x):
+        lv = spatial.Levels(x.shape[2], 7)  # level k at 1 / 2^k
         pyramid = [x]
-        for _ in range(6):
-            pyramid.append(F.avg_pool2d(pyramid[-1], 2, 2))
+        for k in range(6):
+            pyramid.append(lv.pool(pyramid[-1], k, lambda t: ops.avg_pool2d(t, 2)))
         h = None
         for li in range(len(CASCADE_WIDTHS)):
-            level = pyramid[6 - li]
-            h = level if h is None else torch.cat([h, level], 1)
-            for part in "ab":
-                h = getattr(self, f"ln{li}{part}")(getattr(self, f"conv{li}{part}")(h))
-                h = F.leaky_relu(h, 0.2)
-            h = F.interpolate(h, size=pyramid[5 - li].shape[2:], mode="bilinear",
-                              align_corners=False)
+            with lv.at(6 - li):
+                level = pyramid[6 - li]
+                h = level if h is None else torch.cat([h, level], 1)
+                for part in "ab":
+                    h = getattr(self, f"ln{li}{part}")(getattr(self, f"conv{li}{part}")(h))
+                    h = F.leaky_relu(h, 0.2)
+            h = lv.up(ops.upsample_bilinear2x, h, 6 - li)
         return self.conv_out(torch.cat([h, x], 1))

@@ -5,7 +5,8 @@ its weights cast at use, as the JAX package's layers do (f32 parameters,
 a bf16 compute dtype). On a strip of the spatial axis
 (``parallel.spatial``) the convs fetch their halo rows from the row group,
 a ``Pad`` hands its rows and mode to the conv after it, which fetches
-them (reflected only at the image's top and bottom), ``Dropout``
+them (reflected only at the image's top and bottom), the transposed convs
+and ``MaxPool2d`` run on the strip's rows (``parallel.spatial``), ``Dropout``
 draws the whole image's mask and keeps its strip's rows, so that a strip
 sees the mask one process would, and ``BatchNorm2d`` sums its statistics
 over the ranks that hold the global batch's rows.
@@ -15,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dsgan_tpu_torch.ops.conv import max_pool2d
 from dsgan_tpu_torch.parallel import spatial
 
 GELU_MODES = ("auto", "exact", "tanh")
@@ -90,6 +92,14 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                             self.output_padding, rows)
         return F.conv_transpose2d(x, cast(self.weight, x.dtype), cast(self.bias, x.dtype), self.stride,
                                   self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """``nn.MaxPool2d`` through ``ops.max_pool2d``: on a strip, whole
+    windows of its rows."""
+
+    def forward(self, x):
+        return max_pool2d(x, self.kernel_size, self.stride, self.padding)
 
 
 class InstanceNorm(nn.Module):
@@ -250,8 +260,9 @@ def pad2d(x, p, mode="reflect"):
     as ``F.pad``, but a backward without atomic adds. ``F.pad``'s reflect and
     replicate backward on CUDA adds the border's gradients atomically, in an
     order that changes from run to run, so a train step would not repeat
-    bit for bit. A strip has no rows to pad H with: there the conv after a
-    ``Pad`` fetches them (``spatial.sequential``)."""
+    bit for bit. A strip has no rows of its own to pad H with: there the
+    ``Pad`` and the conv after it run through ``spatial.sequential``, which
+    hands the conv the pad's rows and mode to fetch."""
     if spatial.active() is not None:
         raise ValueError("pad2d on a strip: run the Pad and its conv through spatial.sequential")
     return _sides(_sides(x, p, mode, 3), p, mode, 2)

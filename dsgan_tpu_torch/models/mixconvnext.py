@@ -26,6 +26,14 @@ record (serving, eval, an exported graph) reaches K1 / K3 through the
 registered ops ``dsgan::block_core`` / ``dsgan::block_core2``. On a CPU
 tensor the same calls run their plain PyTorch versions.
 
+``remat`` (``--remat``) rematerializes every ConvNeXt block in training,
+as the JAX package's ``nn.remat`` does: ``True`` keeps only each block's
+inputs and re-runs its depthwise conv, statistics and K1 / K3 in the
+backward (``torch.utils.checkpoint``), ``"dots"`` keeps the outputs of
+its convolutions and matrix products and recomputes the rest (JAX's
+``dots_saveable``: ``_DOTS``). A forward that autograd does not record
+rematerializes nothing.
+
 Precision follows the JAX package (``models/layers.py``): every layer
 computes in its input's dtype and casts its weights to it at use, so a
 training build keeps f32 parameters (Adam updates them in f32) and
@@ -34,9 +42,12 @@ casts nothing. ``compute_dtype`` (default: the parameters' dtype) is the
 dtype the input is cast to.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint
 
 from dsgan_tpu_torch import ops
 from dsgan_tpu_torch.kernels.block_core import block_core2_in, block_core_in, pack_weights
@@ -44,6 +55,19 @@ from dsgan_tpu_torch.models.layers import PReLU, cast, gelu, gelu_is_tanh, prelu
 from dsgan_tpu_torch.parallel import spatial
 
 CL = torch.channels_last
+REMAT = (False, True, "dots")
+# the ops whose outputs ``remat="dots"`` keeps: convolutions and matrix
+# products, as ``jax.checkpoint_policies.dots_saveable`` keeps
+# ``conv_general_dilated`` and ``dot_general``; on the card K1 / K3 are no
+# such op and re-run
+_DOTS = {torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.bmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return checkpoint.CheckpointPolicy.MUST_SAVE
+    return checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _w(t, x):
@@ -74,11 +98,14 @@ class ConvNeXtBlock(nn.Module):
 
     ``forward(x, x2)`` is the block on ``concat(x, x2)`` (same parameters):
     the depthwise conv runs per part on the sliced kernel, and K3 takes
-    the parts unconcatenated."""
+    the parts unconcatenated. ``remat``: see the module's docstring."""
 
-    def __init__(self, dim, plans, gelu_mode="auto"):
+    def __init__(self, dim, plans, gelu_mode="auto", remat=False):
         super().__init__()
+        if remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, not {remat!r}")
         self.gelu_mode = gelu_mode
+        self.remat = remat
         self.shortcut = nn.Conv2d(dim, plans, 1, bias=False)
         self.dwconv = nn.Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
@@ -117,6 +144,28 @@ class ConvNeXtBlock(nn.Module):
         return self._pack
 
     def forward(self, x, x2=None):
+        """With ``remat`` where autograd records: the block under
+        non-reentrant checkpointing, recomputed in the split context
+        (``parallel.spatial``) it first ran in, so that a strip's recompute
+        repeats its halo exchanges and its statistics' sums in the order
+        every rank of the row group runs them. The block draws no random
+        numbers: no RNG state is kept (reading the card's while a CUDA
+        graph captures the step fails)."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._forward(x, x2)
+        context_fn = checkpoint.noop_context_fn
+        if self.remat == "dots":
+            context_fn = functools.partial(checkpoint.create_selective_checkpoint_contexts,
+                                           _dots_policy)
+        return checkpoint.checkpoint(self._recompute, spatial.context(), x, x2,
+                                     use_reentrant=False, preserve_rng_state=False,
+                                     context_fn=context_fn)
+
+    def _recompute(self, ctx, x, x2):
+        with spatial.entered(ctx):
+            return self._forward(x, x2)
+
+    def _forward(self, x, x2=None):
         x = x.contiguous(memory_format=CL)
         c1 = x.shape[1]
         gelu_flavour = "tanh" if gelu_is_tanh(self.gelu_mode, x.dtype) else "erf"
@@ -282,22 +331,24 @@ class MixConvNeXtML(nn.Module):
 
     ``forward``: (B, 3, H, W) in [-1, 1], H and W divisible by 16 -> (B, 3,
     H, W), unbounded, in the input's dtype; computes in ``compute_dtype``
-    (None: the parameters' dtype)."""
+    (None: the parameters' dtype); ``remat`` rematerializes the ConvNeXt
+    blocks c1-c5 and uc1-uc4 in training (``REMAT``)."""
 
-    def __init__(self, gelu_mode="auto", compute_dtype=None):
+    def __init__(self, gelu_mode="auto", compute_dtype=None, remat=False):
         super().__init__()
         g = gelu_mode
         self.compute_dtype = compute_dtype
+        self.remat = remat
         widths = (3, 64, 128, 256, 512, 1024)
         for i in range(1, 6):
-            self.add_module(f"c{i}", ConvNeXtBlock(widths[i - 1], widths[i], g))
+            self.add_module(f"c{i}", ConvNeXtBlock(widths[i - 1], widths[i], g, remat))
         for name, (cin, specs) in _SKIPS.items():
             self.add_module(name, nn.ModuleDict({
                 f"to{cout // 64}": DownProject(cin, cout, s, g) for s, cout in specs
             }))
         for i, (cin, feat) in enumerate(((1024, 512), (512, 256), (256, 128), (128, 64)), 1):
             self.add_module(f"u{i}", UpBlock(cin, feat, split=True, gelu_mode=g))
-            self.add_module(f"uc{i}", ConvNeXtBlock(2 * feat, feat, g))
+            self.add_module(f"uc{i}", ConvNeXtBlock(2 * feat, feat, g, remat))
         self.local = OriginMLKA(g)
         self.res = nn.Conv2d(64, 3, 3, padding=1)
 

@@ -342,7 +342,8 @@ class Pix2PixModel(BaseModel):
         self.netG = define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.which_model_netG,
                              norm=opt.norm, use_dropout=not opt.no_dropout,
                              init_type=opt.init_type, dtype=dtype, device=dev,
-                             gelu_mode=opt.gelu, seed=opt.seed, train=self.isTrain)
+                             gelu_mode=opt.gelu, seed=opt.seed, train=self.isTrain,
+                             remat=opt.remat)
         self.state = None
         if not self.isTrain:
             return

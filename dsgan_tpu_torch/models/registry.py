@@ -84,17 +84,19 @@ def init_vgg_params(num_taps=4, seed=0):
 
 
 def generator_spec(input_nc, output_nc, ngf, which_model_netG, norm="instance",
-                   use_dropout=False, gelu_mode="auto"):
+                   use_dropout=False, gelu_mode="auto", remat=False):
     """(module factory, entries) of a generator recipe (reference
     networks.py:81-113; ``unetpp`` and ``wnet`` are the JAX package's
     extension names). MixConvNeXtML maps 3 channels to 3 and ignores
-    ``ngf``, ``norm`` and ``use_dropout``, as in the reference."""
+    ``ngf``, ``norm`` and ``use_dropout``, as in the reference; ``remat``
+    applies to it alone (``mixconvnext.REMAT``), as in the JAX package's
+    ``define_G``."""
     z, x = generators_zoo, blocks_extra
     d = use_dropout
     if which_model_netG == "MixConvNeXtML":
         if (input_nc, output_nc) != (3, 3):
             raise ValueError("MixConvNeXtML maps 3 channels to 3")
-        return (lambda: MixConvNeXtML(gelu_mode=gelu_mode)), None
+        return (lambda: MixConvNeXtML(gelu_mode=gelu_mode, remat=remat)), None
     if which_model_netG in ("resnet_9blocks", "resnet_6blocks"):
         n = 9 if which_model_netG == "resnet_9blocks" else 6
         return ((lambda: z.ResnetGenerator(input_nc, output_nc, ngf, n, norm, d)),
@@ -135,7 +137,7 @@ def serving_build(net):
 
 def define_G(input_nc, output_nc, ngf, which_model_netG, norm="instance", use_dropout=False,
              init_type="normal", dtype=torch.bfloat16, device=None, gelu_mode="auto",
-             params=None, batch_stats=None, seed=0, train=False):
+             params=None, batch_stats=None, seed=0, train=False, remat=False):
     """Generator factory (reference networks.py:81-113). Weights come from
     ``params`` (a JAX-layout tree, e.g. ``utils.convert.load_params_npz``;
     BatchNorm statistics from ``batch_stats``) or else are drawn from
@@ -144,9 +146,11 @@ def define_G(input_nc, output_nc, ngf, which_model_netG, norm="instance", use_dr
 
     The training build (``train=True``) keeps f32 parameters, as the JAX
     package does, computes in ``dtype`` with the weights cast at use, and
-    is in train mode. The serving build (``serving_build``) is in eval mode."""
+    is in train mode. The serving build (``serving_build``) is in eval mode.
+    ``remat`` (False, True or "dots") rematerializes MixConvNeXtML's blocks
+    in training; the other generators ignore it."""
     fn, entries = generator_spec(input_nc, output_nc, ngf, which_model_netG, norm, use_dropout,
-                                 gelu_mode)
+                                 gelu_mode, remat)
     dev = resolve_device(device)
     if params is None:
         params = _init(fn, seed, entries, init_type)

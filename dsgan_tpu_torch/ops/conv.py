@@ -11,9 +11,12 @@ output strip reads, the halo fetched from the row group, and the global
 pools reduce over the group.
 """
 
+import torch
 import torch.nn.functional as F
 
 from dsgan_tpu_torch.parallel import spatial
+
+CL = torch.channels_last
 
 
 def conv2d(x, w, b=None, *, stride=1, padding=0, groups=1):
@@ -39,6 +42,38 @@ def max_pool2d(x, window=2, stride=None, padding=0):
     if rows is not None:
         return spatial.max_pool2d(x, window, stride, padding, rows)
     return F.max_pool2d(x, window, stride, padding)
+
+
+def avg_pool2d(x, window=2, stride=None, padding=0, count_include_pad=True):
+    stride = stride if stride is not None else window
+    rows = spatial.active()
+    if rows is not None:
+        return spatial.avg_pool2d(x, window, stride, padding, count_include_pad, rows)
+    return pool_avg(x, window, stride, padding, count_include_pad)
+
+
+def pool_avg(x, window, stride, padding, count_include_pad):
+    """``F.avg_pool2d``; a pool whose windows overlap (stride below the
+    window) runs on contiguous memory and returns ``x``'s memory format:
+    on a channels_last CUDA tensor torch's backward of such a pool returns
+    wrong input gradients (torch 2.11 + CUDA 12.8 on the H100: rel-L2 ~1
+    against the CPU, ``tests/test_torch_cuda.py``), on a contiguous one
+    the right ones."""
+    if stride >= window:
+        return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)
+    cl = x.dim() == 4 and x.is_contiguous(memory_format=CL) and not x.is_contiguous()
+    y = F.avg_pool2d(x.contiguous(), window, stride, padding, count_include_pad=count_include_pad)
+    return y.contiguous(memory_format=CL) if cl else y
+
+
+def upsample_bilinear2x(x):
+    """Bilinear upsampling to twice the height and width
+    (``align_corners=False``)."""
+    rows = spatial.active()
+    if rows is not None:
+        return spatial.upsample_bilinear2x(x, rows)
+    return F.interpolate(x, size=(2 * x.shape[2], 2 * x.shape[3]), mode="bilinear",
+                         align_corners=False)
 
 
 def adaptive_avg_pool(x):

@@ -9,32 +9,17 @@ built, the GELU flavour from ``--gelu`` through ``define_G(gelu_mode=...)``.
 ``torch.distributed`` group (``parallel.multihost``); only rank 0 writes
 ``opt.txt``.
 
-Flags the port parses but cannot honour yet raise on a value other than
-their default, naming the ROADMAP.md item that brings them
-(``unsupported``); ``--spatial_axis`` above 1 runs pix2pix, CycleGAN and
-diffusion on the resnet / MixConvNeXtML generators and the PatchGAN, and
-raises for the rest (``parallel.check_spatial_recipe``, item 21).
+Every flag of the JAX package runs: ``--remat`` rematerializes
+MixConvNeXtML's blocks in training (``define_G(remat=...)``), and
+``--spatial_axis`` above 1 puts the image rows of every model, generator
+and discriminator over that many ranks (``parallel.spatial``).
 """
 
 import argparse
 import os
 
-from dsgan_tpu_torch.parallel import check_spatial_recipe, multihost
+from dsgan_tpu_torch.parallel import multihost
 from dsgan_tpu_torch.utils import util
-
-# (flag, test that the value needs something the port does not have, why)
-_UNSUPPORTED = (
-    ("remat", bool, "rematerialization is not needed: the default recipe's batch 16 at "
-                    "256x256 takes under 9 GiB of the H100's 80 GB"),
-)
-
-
-def unsupported(opt, is_train=False):
-    """Raise on the first flag whose value the port cannot run yet."""
-    for flag, bad, why in _UNSUPPORTED:
-        if hasattr(opt, flag) and bad(getattr(opt, flag)):
-            raise NotImplementedError(f"--{flag} {getattr(opt, flag)!r} is not ported: {why}")
-    check_spatial_recipe(opt, is_train)
 
 
 class BaseOptions:
@@ -130,7 +115,9 @@ class BaseOptions:
                                  "first use; the Python loader where it cannot take the batch), "
                                  "off = the Python loader")
         parser.add_argument("--remat", action="store_true",
-                            help="rematerialize generator blocks (not ported)")
+                            help="rematerialize MixConvNeXtML's blocks in training (memory for "
+                                 "a second forward of each block: larger batches and "
+                                 "512^2-class images)")
         parser.add_argument("--gelu", type=str, default="auto",
                             help="GELU flavor [auto|exact|tanh]. auto = tanh for bf16 tensors, "
                                  "erf otherwise; exact = erf everywhere")
@@ -139,8 +126,7 @@ class BaseOptions:
                                  "it divides --batchSize)")
         parser.add_argument("--spatial_axis", type=int, default=1,
                             help="spatial-parallel mesh size: image rows over this many ranks "
-                                 "(pix2pix, cycle_gan, diffusion; ROADMAP.md item 21 for the "
-                                 "other zoo networks)")
+                                 "(every model, generator and discriminator)")
         parser.add_argument("--num_hosts", type=int, default=1,
                             help="processes of the run, one a card (torchrun's, or JAX's "
                                  "JAX_COORDINATOR_ADDRESS / JAX_PROCESS_ID rendezvous)")
@@ -154,7 +140,6 @@ class BaseOptions:
         parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
         parser = self.initialize(parser)
         opt, _ = parser.parse_known_args(argv)
-        unsupported(opt, self.isTrain)
 
         # two-stage parse: the selected algorithm adds its own flags
         from dsgan_tpu_torch.models import get_option_setter

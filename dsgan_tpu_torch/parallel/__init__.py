@@ -13,7 +13,7 @@ imports the ops."""
 
 import importlib
 
-_MESH = ("Mesh", "check_spatial_recipe", "data_size", "gather_batch", "gather_image_rows",
+_MESH = ("Mesh", "data_size", "gather_batch", "gather_image_rows",
          "mesh_shape", "query_pool", "reduce_gradients", "reduce_metrics", "replicate",
          "resolve_mesh", "shard_batch", "shard_chunk")
 _MODULES = ("comms", "mesh", "multihost", "spatial")

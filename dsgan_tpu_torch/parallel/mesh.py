@@ -45,11 +45,9 @@ weight gradients and averages the data rows' (``reduce_gradients``,
 strip, and over the data group alone in a level that every rank of a row
 group holds whole (``layers.BatchNorm2d``). A pool draws per image, its
 draws equal on every rank, so each rank swaps its strip of the same
-images. The spatial axis runs pix2pix and CycleGAN on MixConvNeXtML or
-resnet_6/9blocks against the ``basic`` / ``n_layers`` PatchGAN, and
-diffusion's DenoiseUNet, under any ``--norm``; ``check_spatial_recipe``
-refuses the rest of the zoo's generators and the ``pixel`` / ``multi``
-Ds, ROADMAP.md queue A item 21.
+images. The spatial axis runs every model (pix2pix, CycleGAN, diffusion
+and the eval build), every generator and discriminator of the registry
+and every ``--norm``.
 """
 
 import dataclasses
@@ -59,12 +57,6 @@ import torch.distributed as dist
 
 from dsgan_tpu_torch.ops.metrics import psnr_from_mse
 from dsgan_tpu_torch.parallel import comms, multihost
-
-# what the spatial axis runs (the rest is ROADMAP.md queue A item 21)
-SPATIAL_MODELS = ("pix2pix", "test", "cycle_gan", "diffusion")
-SPATIAL_GENERATORS = ("MixConvNeXtML", "resnet_6blocks", "resnet_9blocks")
-SPATIAL_DISCRIMINATORS = ("basic", "n_layers")
-
 
 @dataclasses.dataclass
 class Mesh:
@@ -166,29 +158,6 @@ def _spatial_mesh(data, spatial, rank):
     for g in (mesh.row_group, mesh.data_group):
         dist.all_reduce(torch.zeros(1, device=dev), group=g)
     return mesh
-
-
-def check_spatial_recipe(opt, is_train=False):
-    """Raise unless the options' run is one the spatial axis runs: pix2pix
-    and CycleGAN (train, eval, video) on MixConvNeXtML or resnet_6/9blocks,
-    the PatchGAN (``is_train``), or diffusion (its DenoiseUNet reads no
-    generator or D flag); any ``--norm``."""
-    if int(getattr(opt, "spatial_axis", 1) or 1) <= 1:
-        return
-    bad = []
-    model = getattr(opt, "model", "pix2pix")
-    if model not in SPATIAL_MODELS:
-        bad.append(f"--model {model}")
-    elif model != "diffusion":
-        if getattr(opt, "which_model_netG", "MixConvNeXtML") not in SPATIAL_GENERATORS:
-            bad.append(f"--which_model_netG {opt.which_model_netG}")
-        if is_train and getattr(opt, "which_model_netD", "basic") not in SPATIAL_DISCRIMINATORS:
-            bad.append(f"--which_model_netD {opt.which_model_netD}")
-    if bad:
-        raise NotImplementedError(
-            f"--spatial_axis {opt.spatial_axis} with {', '.join(bad)} is not ported: the spatial "
-            "axis runs pix2pix and CycleGAN on MixConvNeXtML or resnet_6/9blocks and the "
-            "PatchGAN, and diffusion, under any --norm; the rest is ROADMAP.md queue A item 21")
 
 
 def data_size(mesh):

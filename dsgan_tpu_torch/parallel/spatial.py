@@ -15,8 +15,11 @@ row group from here (``active``) and do what the partitioner would:
     which adds it to the row's;
   * ``conv2d`` (any kernel, stride and padding whose output height splits
     over the group; a reflect or replicate pad before it hands the conv
-    its rows, ``sequential``), ``conv_transpose2d`` (the k3 s2 p1 op1
-    upsample), ``max_pool2d`` on whole windows;
+    its rows, ``sequential``), ``conv_transpose2d`` (any kernel, stride and
+    padding: the k3 s2 p1 op1 and k4 s2 p1 upsamples), ``max_pool2d`` on
+    whole windows, ``avg_pool2d`` (whole windows, and the 3x3 stride-2
+    pool of the pyramids, its divisor from the image's padding alone),
+    ``upsample_bilinear2x``;
   * ``sum_rows`` / ``max_rows``: sums and maxima over the group, with
     their gradients (a maximum's cotangent to the rows that hold it);
   * ``mean`` / ``share``: a rank's share of a global mean, so that the
@@ -84,6 +87,26 @@ def active():
     """The row group the ops split over, or None (one process, or a
     replicated level)."""
     return None if _replicated else _active
+
+
+def context():
+    """The split context as it stands (the row group, and whether every rank
+    holds the whole image), to re-enter later with ``entered``."""
+    return _active, _replicated
+
+
+@contextlib.contextmanager
+def entered(ctx):
+    """Run inside a split context taken by ``context``: a forward recomputed
+    in the backward (``torch.utils.checkpoint``) runs outside the one it
+    first ran in."""
+    global _active, _replicated
+    prev = _active, _replicated
+    _active, _replicated = ctx
+    try:
+        yield
+    finally:
+        _active, _replicated = prev
 
 
 @contextlib.contextmanager
@@ -251,13 +274,17 @@ def halo(x, top, bottom, mode="zero", rows=None):
 # -- gathering and taking a level -------------------------------------------
 
 class GatherRows(torch.autograd.Function):
-    """The whole image on every rank from the group's strips; the backward
-    sums the ranks' cotangents and keeps this rank's rows."""
+    """The whole image on every rank from the group's strips, in the
+    strip's memory format (the convs after it then take one process's
+    algorithms: a channels_last and a contiguous input give cuDNN
+    different sums, which a gradient that cancels shows); the backward sums
+    the ranks' cotangents and keeps this rank's rows."""
 
     @staticmethod
     def forward(ctx, x, rows):
         ctx.rows, ctx.h = rows, x.shape[2]
-        return comms.all_gather(x, rows.mesh, group=rows.group, dim=2)
+        out = comms.all_gather(x, rows.mesh, group=rows.group, dim=2)
+        return _like(x, out.shape).copy_(out)
 
     @staticmethod
     def backward(ctx, g):
@@ -381,17 +408,25 @@ def conv2d(x, w, b, stride, padding, groups, rows, mode="zero"):
 
 
 def conv_transpose2d(x, w, b, stride, padding, output_padding, rows):
-    """The k3 s2 p1 op1 transposed conv on a strip: its 2h output rows read
-    one input row below the strip."""
-    (sh, sw), (ph, pw), (oh, ow) = _pair(stride), _pair(padding), _pair(output_padding)
-    if (w.shape[2], sh, ph, oh) != (3, 2, 1, 1):
-        raise NotImplementedError(
-            f"a k{w.shape[2]} s{sh} p{ph} op{oh} transposed conv on the spatial axis is "
-            "ROADMAP.md queue A item 21")
+    """A transposed conv on a strip (the generator's k3 s2 p1 op1, the
+    U-Nets' k4 s2 p1): output rows ``[s a, s (a + h))`` read input rows
+    from ``ceil((s a + p - k + 1) / s)`` to ``floor((s (a + h) - 1 + p) /
+    s)``, fetched (zeros past the image), the conv run with no padding
+    along H, and this rank's rows kept."""
+    (sh, sw), (ph, pw), (oh, ow), kh = (_pair(stride), _pair(padding), _pair(output_padding),
+                                        w.shape[2])
     h = x.shape[2]
-    y = F.conv_transpose2d(halo(x, 0, 1, rows=rows), w, b, stride=(2, sw), padding=(1, pw),
-                           output_padding=(0, ow))
-    return y.narrow(2, 0, 2 * h)
+    ho_g = (h * rows.size - 1) * sh - 2 * ph + kh + oh
+    if ho_g != sh * h * rows.size:
+        raise ValueError(f"a k{kh} s{sh} p{ph} op{oh} transposed conv's output height {ho_g} is "
+                         f"not {sh} times its input's: gather its input first")
+    ho = sh * h
+    a, lo = rows.index * ho, rows.index * h
+    first = -((ph - kh + 1 + a) // -sh)  # ceil((a + p - k + 1) / s)
+    last = (a + ho - 1 + ph) // sh
+    y = F.conv_transpose2d(halo(x, lo - first, last - (lo + h - 1), rows=rows), w, b,
+                           stride=(sh, sw), padding=(0, pw), output_padding=(0, ow))
+    return y.narrow(2, a + ph - sh * first, ho)
 
 
 def max_pool2d(x, window, stride, padding, rows):
@@ -400,6 +435,50 @@ def max_pool2d(x, window, stride, padding, rows):
         raise ValueError(f"a {window}x{window} pool on a strip of {x.shape[2]} rows does not "
                          "tile: gather the level first")
     return F.max_pool2d(x, window, window, 0)
+
+
+def avg_pool2d(x, window, stride, padding, count_include_pad, rows):
+    """``F.avg_pool2d`` on a strip: whole windows as they are; otherwise
+    the rows its output strip reads, fetched from within the image, and the
+    pool run with the image's own padding rows where the strip reaches its
+    top or bottom, so that ``count_include_pad=False`` divides each window
+    by the positions it covers in the image (3 rows at a strip's edge, 2 at
+    the image's top for a 3x3 window of padding 1), never by the strip's."""
+    if stride == window and not padding and x.shape[2] % window == 0:
+        return F.avg_pool2d(x, window, window, 0)
+    h = x.shape[2]
+    hg = h * rows.size
+    ho_g = _out_height(hg, window, stride, padding)
+    if ho_g % rows.size:
+        raise ValueError(f"a {window}x{window} average pool's output height {ho_g} does not "
+                         f"split over {rows.size} ranks: gather its input first")
+    ho = ho_g // rows.size
+    # the input rows its output strip reads, the same count on every rank
+    first = stride * rows.index * ho - padding
+    last = stride * (rows.index * ho + ho - 1) - padding + window - 1
+    lo = rows.index * h
+    top, bottom = lo - first, last - (lo + h - 1)
+    pad_top, pad_bottom = max(-first, 0), max(last - (hg - 1), 0)  # past the image
+    if pad_bottom > pad_top:
+        raise ValueError("an average pool padded below its strip alone is not supported")
+    from dsgan_tpu_torch.ops.conv import pool_avg
+
+    xh = halo(x, top, bottom, rows=rows)  # zeros past the image: dropped, the pool pads there
+    xh = xh.narrow(2, pad_top, xh.shape[2] - pad_top - pad_bottom)
+    return pool_avg(xh, window, stride, (pad_top, padding), count_include_pad).narrow(2, 0, ho)
+
+
+def upsample_bilinear2x(x, rows):
+    """Bilinear upsampling to twice the height and width on a strip
+    (``align_corners=False``): output rows ``[2 a, 2 (a + h))`` read input
+    rows a - 1 to a + h, the image's edge rows replicated as the one
+    process clamps them. At the image's top the replicated row above is
+    dropped, so that the first rows take the one process's weights."""
+    h, w = x.shape[2], x.shape[3]
+    top = 0 if rows.index == 0 else 1
+    xh = halo(x, 1, 1, "replicate", rows).narrow(2, 1 - top, h + top + 1)
+    y = F.interpolate(xh, size=(2 * (h + top + 1), 2 * w), mode="bilinear", align_corners=False)
+    return y.narrow(2, 2 * top, 2 * h)
 
 
 def valid_rows(x, k):
@@ -465,15 +544,16 @@ class Levels:
         """The ops' context at level k."""
         return replicated(self.rep[k]) if self.rows else contextlib.nullcontext()
 
-    def pool(self, t, k):
-        """``t`` at level k max-pooled by 2 into level k + 1, gathered first
-        where level k splits and k + 1 does not."""
+    def pool(self, t, k, fn=None):
+        """``t`` at level k pooled by 2 into level k + 1 (``fn``, default
+        ``ops.max_pool2d(t, 2)``), gathered first where level k splits and
+        k + 1 does not."""
         from dsgan_tpu_torch.ops.conv import max_pool2d
 
         if self.rows and self.rep[k + 1] and not self.rep[k]:
             t = gather(t, self.rows)
         with self.at(k + 1):
-            return max_pool2d(t, 2)
+            return (fn or (lambda v: max_pool2d(v, 2)))(t)
 
     def up(self, fn, t, k):
         """``fn`` (an upsample into level k - 1) on ``t`` at level k; where

@@ -115,10 +115,9 @@ def main(argv=None):
     if len(paths) < 2:
         raise SystemExit(f"need >=2 frames in {opt.dataroot}, found {len(paths)}")
     h, w, nc = opt.fineSize_h, opt.fineSize_w, int(opt.input_nc)
-    g = load_generator(opt, device)
-
     bs = max(int(opt.batchSize), 1)
     mesh = resolve_mesh(opt.data_axis, opt.spatial_axis, batch_size=bs, height=h)
+    g = load_generator(opt, device)
     x_all = _load_frames(paths, h, w, nc)
     ys = []
     with torch.inference_mode():

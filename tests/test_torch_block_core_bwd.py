@@ -260,3 +260,34 @@ def test_backward_gate_raises_past_shared_memory():
     assert bc.bwd_smem_bytes(16, 1024, 128, 512) == 181504
     with pytest.raises(ValueError, match="shared memory"):
         bc.bwd_rows(2048, 128, 2048)
+
+
+def test_k2_k4_run_in_chunks_of_images_past_their_indices():
+    """A batch whose matrices reach 2^31 elements (uc4 at 1024x1024: its
+    (B * HW, 512) hidden from 4 images) runs K2 / K4 as launches of as many
+    images as ``k4_plan`` takes; the joined outputs (dn, dx and the S sums
+    along the batch, the weight gradients summed) are one call's, here with
+    the plain version as each launch."""
+    hw, cp, h4p, pp = 1024 * 1024, 128, 512, 64
+    chunks = bc.image_chunks(16, hw, cp, h4p, pp)
+    assert chunks == [(0, 3), (3, 6), (6, 9), (9, 12), (12, 15), (15, 16)]
+    for i, j in chunks:
+        bc.k4_plan(j - i, hw, cp, h4p, pp, pp)
+    with pytest.raises(ValueError, match="2\\^31"):
+        bc.k4_plan(4, hw, cp, h4p, pp, pp)
+    assert bc.image_chunks(16, 256 * 256, cp, h4p, pp) == [(0, 16)]
+    assert bc.image_chunks(16, hw, cp, h4p, pp, bf16=False) == [(0, 16)]
+
+    mk = _mk(np.random.default_rng(5))
+    c1, c2, p = 4, 3, 5
+    ha, hb, xa, xb = (_nchw(mk(3, 4, 4, c)) for c in (c1, c2, c1, c2))
+    g = _nchw(mk(3, 4, 4, p))
+    w1, b1, w2, _, ws = map(torch.from_numpy, _weights(mk, c1 + c2, p))
+    (ma, ra), (mb, rb) = instance_stats(ha), instance_stats(hb)
+    want = bc.block_core2_bwd_reference(ha, hb, xa, xb, ma, ra, mb, rb, g, w1, b1, w2, ws)
+    got = bc.in_chunks(lambda i, j: bc.block_core2_bwd_reference(
+        ha[i:j], hb[i:j], xa[i:j], xb[i:j], ma[i:j], ra[i:j], mb[i:j], rb[i:j], g[i:j], w1, b1,
+        w2, ws), [(0, 1), (1, 3)], (0, 1, 2, 3, 9, 10, 11, 12))
+    assert len(got) == len(want) == 13
+    for k, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=f"output {k}")

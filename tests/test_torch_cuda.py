@@ -597,3 +597,30 @@ def test_zoo_forward_on_the_card_matches_the_cpu(cuda, monkeypatch, name, size):
         y = net(x.cuda())
     assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
     assert (bc.block_core.launches, bc.block_core2.launches) == (0, 0)
+
+
+@pytest.mark.parametrize("window,stride,padding", [(3, 2, 1), (2, 2, 0)])
+def test_average_pool_gradient_on_the_card_matches_the_cpu(cuda, window, stride, padding):
+    """``ops.avg_pool2d`` on a channels_last CUDA tensor (the multiscale D's
+    and gll's 3x3 stride-2 pyramids, cascaded's 2x2 one): its input gradient
+    matches the CPU's. torch's own overlapping pool on channels_last memory
+    does not on torch 2.11 + CUDA 12.8 (rel-L2 ~1), which ``ops.pool_avg``
+    steps around."""
+    from dsgan_tpu_torch import ops
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 64, 64)).astype(np.float32))
+
+    def grad(t):
+        t = t.detach().clone().requires_grad_(True)
+        y = ops.avg_pool2d(t, window, stride, padding, count_include_pad=False)
+        g = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32))
+        y.backward(g.to(t.device))
+        return y.detach().cpu(), t.grad.cpu()
+
+    rng = np.random.default_rng(7)
+    want = grad(x)
+    rng = np.random.default_rng(7)
+    got = grad(x.to(cuda).contiguous(memory_format=torch.channels_last))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -120,3 +120,36 @@ def test_normalize_and_quantize_uint8():
     np.testing.assert_array_equal(got, np.asarray(jmetrics.quantize_uint8(jnp.asarray(f))))
     t = torch.from_numpy(f)
     assert ops.normalize_u8(t) is t   # float input passes through
+
+
+def test_overlapping_average_pool_runs_on_contiguous_memory():
+    """``ops.avg_pool2d`` with overlapping windows hands torch's pool
+    contiguous memory and returns the input's channels_last layout, its
+    values and gradient the plain pool's (torch's overlapping pool on
+    channels_last CUDA memory returns wrong gradients: ``ops.pool_avg``)."""
+    from unittest import mock
+
+    from dsgan_tpu_torch import ops
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 16, 12)).astype(np.float32))
+    xc = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    seen = []
+    pool = torch.nn.functional.avg_pool2d
+
+    def spy(t, *args, **kwargs):
+        seen.append(t.is_contiguous())
+        return pool(t, *args, **kwargs)
+
+    with mock.patch.object(torch.nn.functional, "avg_pool2d", spy):
+        y = ops.avg_pool2d(xc, 3, 2, 1, count_include_pad=False)
+        ops.avg_pool2d(xc, 2)
+    assert seen == [True, False]
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    xr = x.clone().requires_grad_(True)
+    want = torch.nn.functional.avg_pool2d(xr, 3, 2, 1, count_include_pad=False)
+    assert torch.equal(y, want)
+    g = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32))
+    y.backward(g)
+    want.backward(g)
+    assert torch.equal(xc.grad, xr.grad)

@@ -1,7 +1,7 @@
 """The port's options (dsgan_tpu_torch.options) against the JAX package's:
-every flag with the same name, default, type and action; the flags the port
-parses but cannot run yet refuse a value other than their default and name
-their ROADMAP.md item; and the LR policies of the port's BaseModel against
+every flag with the same name, default, type and action; the flags that
+refused their values until their ROADMAP.md items were ported parse and
+build; and the LR policies of the port's BaseModel against
 JAX BaseModel's over 25 epochs."""
 
 import argparse
@@ -55,19 +55,32 @@ def test_parse_writes_opt_txt_and_sets_no_process_state(tmp_path):
     assert dict(vars(layers)) == before
 
 
-@pytest.mark.parametrize("argv,match", [
-    # the spatial axis (item 13) runs pix2pix, CycleGAN and diffusion on the
-    # resnet / MixConvNeXtML generators and the PatchGAN; the U-Nets and the
-    # pixel D on it are item 21
-    pytest.param(["--spatial_axis", "2", "--which_model_netG", "unet_256"], "item 21",
-                 id="--spatial_axis_2-item 13"),
+@pytest.mark.parametrize("argv,nets", [
+    # the spatial axis runs the U-Nets and the pixel D, and --remat
+    # rematerializes MixConvNeXtML's blocks
+    pytest.param(["--spatial_axis", "2", "--which_model_netG", "unet_256"],
+                 ("UnetGenerator", "NLayerDiscriminator"), id="--spatial_axis_2-item 13"),
     pytest.param(["--data_axis", "2", "--spatial_axis", "2", "--which_model_netD", "pixel"],
-                 "item 21", id="--data_axis_2_--spatial_axis_2-item 13"),
-    pytest.param(["--remat"], "not needed", id="--remat-not needed"),
+                 ("MixConvNeXtML", "PixelDiscriminator"),
+                 id="--data_axis_2_--spatial_axis_2-item 13"),
+    pytest.param(["--remat"], ("MixConvNeXtML", "NLayerDiscriminator"), id="--remat-not needed"),
 ])
-def test_unported_switches_raise_with_their_roadmap_item(tmp_path, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path)] + argv)
+def test_unported_switches_raise_with_their_roadmap_item(tmp_path, argv, nets):
+    """The switches that raised until their items were ported (item 21: the
+    rest of the zoo on the spatial axis; item 22: --remat) now parse, and
+    the networks build from the parsed options."""
+    import torch
+
+    from dsgan_tpu_torch.models import define_D, define_G
+
+    opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--ngf", "8"] + argv)
+    G = define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.which_model_netG, opt.norm,
+                 not opt.no_dropout, dtype=torch.float32, device="cpu", remat=opt.remat,
+                 train=True)
+    D = define_D(opt.input_nc + opt.output_nc, opt.ndf, opt.which_model_netD, opt.n_layers_D,
+                 opt.norm, dtype=torch.float32, device="cpu")
+    assert (type(G).__name__, type(D).__name__) == nets
+    assert getattr(G, "remat", False) == ("--remat" in argv)
 
 
 @pytest.mark.parametrize("argv,match", [

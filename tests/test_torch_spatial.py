@@ -5,7 +5,9 @@ Ops: every windowed op of the default recipe on the strips of 2 and of 4
 ranks against one process on the whole image, f32, forward and input
 gradient (and, where the op has weights, their gradients summed over the
 ranks) within rel-L2 1e-6: the convs at each (k, s, p) the recipe uses,
-the transposed conv, the pools and the global pools, ``instance_stats``,
+the transposed convs (k3 s2 p1 op1, the U-Nets' k4 s2 p1), the pools (the
+3x3 stride-2 average pool dividing by the image's padding alone), the
+bilinear x2 upsample, the cascaded LayerNorm's sums and the global pools, ``instance_stats``,
 ``in_fold`` through the plain K2 / K4 (``block_core_in`` /
 ``block_core2_in``), a reflect ``Pad`` before a conv, TV, SSIM,
 ``ssim_uint8``, the loss means, a level that does not split (the
@@ -39,6 +41,7 @@ the one process's own floor (its distance to itself at another thread
 count), and over 2 against JAX's ``g.apply``
 (``tests/test_parallel.py:245``'s rtol 2e-3 / atol 2e-4).
 Outside ``spatial.rows`` the ops run their one-process code bit for bit.
+Every multi-rank run takes one spawn a rank count (``op_runs``).
 """
 
 import zlib
@@ -87,6 +90,22 @@ def _pad_conv(p):
 def _convt():
     w, b = _weights(7, 4, 4, 3)
     return lambda x: ops.conv_transpose2d(x, w.transpose(0, 1).contiguous(), b)
+
+
+def _convt_k4():
+    w, b = _weights(8, 4, 4, 4)
+    return lambda x: ops.conv_transpose2d(x, w.transpose(0, 1).contiguous(), b, stride=2,
+                                          padding=1, output_padding=0)
+
+
+def _cascade_ln():
+    from dsgan_tpu_torch.models.generators_zoo import CascadeLayerNorm
+
+    ln = CascadeLayerNorm(4)
+    with torch.no_grad():
+        ln.gamma.copy_(torch.linspace(0.5, 1.5, 4))
+        ln.beta.copy_(torch.linspace(-0.2, 0.2, 4))
+    return ln, list(ln.parameters())
 
 
 def _block_core(two):
@@ -156,7 +175,14 @@ CASES = {
     "conv_k3_s2_p1": (lambda: (_conv(3, 2, 1), []), "split", (2, 4, 16, 8)),
     "conv_k1": (lambda: (_conv(1, 1, 0), []), "split", (2, 4, 16, 8)),
     "conv_transpose_k3_s2": (lambda: (_convt(), []), "split", (2, 4, 8, 8)),
+    "conv_transpose_k4_s2_p1": (lambda: (_convt_k4(), []), "split", (2, 4, 8, 8)),
     "max_pool_2": (lambda: (lambda x: ops.max_pool2d(x, 2), []), "split", (2, 4, 16, 8)),
+    "avg_pool_3_s2_p1_image_divisor": (
+        lambda: (lambda x: ops.avg_pool2d(x, 3, 2, 1, count_include_pad=False), []), "split",
+        (2, 4, 16, 8)),
+    "avg_pool_2": (lambda: (lambda x: ops.avg_pool2d(x, 2), []), "split", (2, 4, 16, 8)),
+    "upsample_bilinear2x": (lambda: (ops.upsample_bilinear2x, []), "split", (2, 4, 8, 8)),
+    "cascade_layer_norm": (_cascade_ln, "split", (2, 4, 16, 8)),
     "global_pools": (lambda: (_pools, []), "whole", (2, 4, 16, 8)),
     "instance_stats": (lambda: (_stats, []), "whole", (2, 4, 16, 8)),
     "instance_norm": (lambda: (ops.instance_norm, []), "split", (2, 4, 16, 8)),
@@ -225,10 +251,20 @@ def _run_case(name, mesh):
 
 
 def _ops_rank(rank, size, out):
+    """Every run of this file on ``size`` ranks, in one spawn: the op cases,
+    the generator's forward (``_forward``), and on 2 ranks the mix step, on
+    4 the gathers (``_gathers``) and the resnet step over data 2 x spatial 2
+    (``_run_steps``)."""
     torch.set_num_threads(1)
     mesh = resolve_mesh(1, size, batch_size=2, height=32)
     assert mesh.shape == (1, size) and mesh.row == rank
-    torch.save({name: _run_case(name, mesh) for name in CASES}, f"{out}/rank{rank}.pt")
+    res = {"ops": {name: _run_case(name, mesh) for name in CASES}, "forward": _forward(size)}
+    if size == 2:
+        res["step"] = _run_steps("mix", resolve_mesh(1, 2, batch_size=2, height=32), 2)
+    else:
+        res["gathers"] = _gathers(rank)
+        res["step"] = _run_steps("resnet", resolve_mesh(2, 2, batch_size=4, height=32), 2)
+    torch.save(res, f"{out}/rank{rank}.pt")
 
 
 @pytest.fixture(scope="module")
@@ -264,7 +300,7 @@ def test_op_on_strips_equals_one_process(op_runs, name, size):
     kind = CASES[name][1]
     want_y, want_g, want_p = _run_case(name, None)
     bound_y, bound_g, bound_p = _bounds(name, want_p)
-    ranks = [r[name] for r in op_runs[size]]
+    ranks = [r["ops"][name] for r in op_runs[size]]
     if kind == "split":
         got_y = torch.cat([r[0] for r in ranks], 2)
     elif kind == "whole":
@@ -310,22 +346,21 @@ def test_a_pad_alone_on_a_strip_raises():
             spatial.sequential([Pad(1), Conv2d(4, 4, 3, padding=1)], x)
 
 
-def _gather_rank(rank, out):
+def _gathers(rank):
     from dsgan_tpu_torch.parallel import comms
 
     mesh = resolve_mesh(2, 2, batch_size=2, height=4)
     t = torch.full((1, 1), float(rank))
-    torch.save({"rows": comms.all_gather(t, mesh, group=mesh.row_group),
-                "data": comms.all_gather(t, mesh)}, f"{out}/rank{rank}.pt")
+    return {"rows": comms.all_gather(t, mesh, group=mesh.row_group),
+            "data": comms.all_gather(t, mesh)}
 
 
-def test_all_gather_takes_the_group_it_is_given(tmp_path):
+def test_all_gather_takes_the_group_it_is_given(op_runs):
     """On a 2 x 2 mesh (rank = d * 2 + s) a gather over the row group joins
     the ranks of this rank's data row, and with no group the data axis's
     (its column): ranks 0 and 1 gather [0, 1] and [0, 2] / [1, 3]."""
-    multihost.spawn(_gather_rank, 4, (str(tmp_path),), timeout=TIMEOUT)
     for rank in range(4):
-        got = torch.load(tmp_path / f"rank{rank}.pt")
+        got = op_runs[4][rank]["gathers"]
         d, s = divmod(rank, 2)
         assert got["rows"].flatten().tolist() == [2 * d, 2 * d + 1]
         assert got["data"].flatten().tolist() == [s, s + 2]
@@ -403,18 +438,6 @@ def _run_steps(name, mesh, spatial_size=1):
     return metrics, grads, state.state_dict()
 
 
-def _step_rank(rank, name, data, size, out):
-    torch.set_num_threads(1)
-    mesh = resolve_mesh(data, size, batch_size=2 * data, height=32)
-    assert mesh.shape == (data, size)
-    torch.save(_run_steps(name, mesh, size), f"{out}/rank{rank}.pt")
-
-
-def _ranks(name, data, size, tmp_path):
-    multihost.spawn(_step_rank, data * size, (name, data, size, str(tmp_path)), timeout=TIMEOUT)
-    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(data * size)]
-
-
 def _tensors(tree, path=""):
     if isinstance(tree, torch.Tensor):
         yield path, tree
@@ -426,7 +449,7 @@ def _tensors(tree, path=""):
             yield from _tensors(v, f"{path}/{i}")
 
 
-def test_spatial_step_equals_one_process(tmp_path):
+def test_spatial_step_equals_one_process(op_runs):
     from tests.test_torch_parallel import check_parameters
 
     want_m, want_g, want_s = _run_steps("mix", None)
@@ -436,7 +459,7 @@ def test_spatial_step_equals_one_process(tmp_path):
         _, floor_g, _ = _run_steps("mix", None)
     finally:
         torch.set_num_threads(threads)
-    (m0, g0, s0), (m1, _, s1) = _ranks("mix", 1, 2, tmp_path)
+    (m0, g0, s0), (m1, _, s1) = (r["step"] for r in op_runs[2])
     assert m0 == m1, "the ranks report different metrics"
     a, b = dict(_tensors(s0)), dict(_tensors(s1))
     differ = [k for k in a if not torch.equal(a[k], b[k])]
@@ -498,8 +521,8 @@ def _jax_losses():
     return out
 
 
-def test_data2_spatial2_step_matches_jax(tmp_path):
-    ranks = _ranks("resnet", 2, 2, tmp_path)
+def test_data2_spatial2_step_matches_jax(op_runs):
+    ranks = [r["step"] for r in op_runs[4]]
     assert all(r[0] == ranks[0][0] for r in ranks), "the ranks report different metrics"
     want = _jax_losses()
     for i, (g, w) in enumerate(zip(ranks[0][0], want)):
@@ -517,24 +540,22 @@ def _generator():
     return define_G(3, 3, 32, "MixConvNeXtML", params=init_params(1), **F32)
 
 
-def _forward_rank(rank, size, out):
-    torch.set_num_threads(1)
+def _forward(size):
+    """This rank's strip of the generator's serving forward at 48 rows."""
     mesh = resolve_mesh(1, size, height=SIZE)
     G = _generator()
     x = _t(np.random.default_rng(2), 2, 3, SIZE, SIZE)[:, :, mesh.strip(SIZE)]
     with spatial.rows(mesh), torch.no_grad():
-        y = G(x)
-    torch.save(y, f"{out}/rank{rank}.pt")
+        return G(x)
 
 
 @pytest.mark.parametrize("size", [2, 4])
-def test_mixconvnext_forward_on_strips(size, tmp_path):
+def test_mixconvnext_forward_on_strips(size, op_runs):
     """The serving forward (the registered K1 / K3 ops with the group's
     statistics) over 2 ranks, and over 4, where level 4's 2 rows do not
     split and run whole on every rank, against one process; over 2 also
     against JAX's ``g.apply`` on the same weights."""
-    multihost.spawn(_forward_rank, size, (size, str(tmp_path)), timeout=TIMEOUT)
-    got = torch.cat([torch.load(tmp_path / f"rank{r}.pt") for r in range(size)], 2)
+    got = torch.cat([r["forward"] for r in op_runs[size]], 2)
     x = _t(np.random.default_rng(2), 2, 3, SIZE, SIZE)
     G = _generator()
     threads = torch.get_num_threads()

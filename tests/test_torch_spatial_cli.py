@@ -14,8 +14,9 @@ spawned), the counterpart of ``tests/test_parallel.py:138-193``:
     (one step) and the eval CLI at ``--spatial_axis 2`` against one
     process: the checkpoints (CycleGAN's two pools joined from the strips,
     diffusion's draws) and the eval's metrics;
-  * the recipes the spatial axis does not run raise, naming ROADMAP.md
-    item 21; CycleGAN, diffusion and ``--norm batch|none`` parse.
+  * the rest of the zoo (gll against the multiscale D) through the train
+    CLI for one step and the eval CLI at ``--spatial_axis 2`` against one
+    process; every recipe parses on the spatial axis and its nets build.
 """
 
 import csv
@@ -37,19 +38,19 @@ RESNET = ["--which_model_netG", "resnet_6blocks", "--ngf", "8", "--ndf", "8", "-
 MIX = ["--ndf", "8", "--pool_size", "0"]
 
 
-def _dataset(root, n=4):
+def _dataset(root, n=4, size=32):
     rng = np.random.default_rng(0)
     d = root / "data" / "train_all"
     d.mkdir(parents=True)
     for pfx in "ab":
         for i in range(n):
-            Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(
+            Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)).save(
                 d / f"{pfx}_{i}.png")
     t = root / "data" / "test_all"
     t.mkdir()
     for i in range(2):
         for pfx in "ab":
-            Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(
+            Image.fromarray(rng.integers(0, 255, (size, size, 3), dtype=np.uint8)).save(
                 t / f"{pfx}_{i}.png")
     return str(root / "data")
 
@@ -270,11 +271,51 @@ def test_diffusion_train_eval_on_two_strips(tmp_path):
     ["--which_model_netG", "cascaded", "--norm", "batch"],
 ], ids=lambda v: "_".join(a.lstrip("-") for a in v))
 def test_item_21_recipes_raise(tmp_path, argv):
+    """The recipes of item 21's part 4, refused until it was ported, parse
+    at ``--spatial_axis 2`` and their nets build on the parsed options (a
+    forward on strips: ``tests/test_torch_spatial_zoo.py``)."""
+    from dsgan_tpu_torch.models import define_D, define_G
     from dsgan_tpu_torch.options.train_options import TrainOptions
 
-    with pytest.raises(NotImplementedError, match="item 21"):
-        TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--spatial_axis", "2"]
-                             + argv)
+    opt = TrainOptions().parse(argv=["--checkpoints_dir", str(tmp_path), "--spatial_axis", "2",
+                                     "--ngf", "8"] + argv)
+    assert opt.spatial_axis == 2
+    G = define_G(opt.input_nc, opt.output_nc, opt.ngf, opt.which_model_netG, opt.norm,
+                 not opt.no_dropout, dtype=torch.float32, device="cpu", train=True)
+    D = define_D(opt.input_nc + opt.output_nc, opt.ndf, opt.which_model_netD, opt.n_layers_D,
+                 opt.norm, dtype=torch.float32, device="cpu")
+    names = {"unet_128": "UnetGenerator", "cascaded": "CascadedGenerator",
+             "MixConvNeXtML": "MixConvNeXtML", "multi": "MultiscaleDiscriminator",
+             "pixel": "PixelDiscriminator", "basic": "NLayerDiscriminator"}
+    assert (type(G).__name__, type(D).__name__) == (names[opt.which_model_netG],
+                                                    names[opt.which_model_netD])
+
+
+def test_zoo_train_eval_on_two_strips(tmp_path):
+    """gll (ngf 4) against the multiscale D (ndf 8), pool 2, 64x64 (its
+    global trunk's deepest level 4x4, as ``tests/test_torch_spatial_zoo.py``
+    runs it), through the train CLI for one step at ``--spatial_axis 2`` and
+    the eval CLI on its checkpoint, against one process: the checkpoint's
+    parameters and Adam's moments, the pool's images joined from the
+    strips, the eval's per-image and mean metrics."""
+    data = _dataset(tmp_path, n=2, size=64)
+    zoo = ["--which_model_netG", "gll", "--ngf", "4", "--no_dropout"] + [
+        v for f in ("loadSize_w", "loadSize_h", "fineSize_w", "fineSize_h") for v in (f"--{f}",
+                                                                                       "64")]
+    argv = (["--dataroot", data, "--name", "z", "--which_model_netD", "multi", "--ndf", "8",
+             "--pool_size", "2"] + COMMON + zoo)
+    tail = (["--dataroot", data, "--name", "z", "--which_epoch", "1", "--how_many", "2",
+             "--platform", "cpu", "--dtype", "float32"] + zoo)
+    (want, got), tables = _train_eval(tmp_path, argv, tail, "z")
+    assert int(got["step"]) == int(want["step"]) == 1
+    for net in ("netG", "netD"):
+        for k, w in want[net].items():
+            torch.testing.assert_close(got[net][k], w, rtol=0, atol=1e-6)
+    for opt in ("opt_G", "opt_D"):
+        assert rel_l2(_adam(got, opt), _adam(want, opt)) <= 1e-4
+    assert got["pool_images"].shape == (2, 6, 64, 64)
+    torch.testing.assert_close(got["pool_images"], want["pool_images"], rtol=1e-4, atol=2e-4)
+    _same_metrics(tables)
 
 
 @pytest.mark.parametrize("argv", [

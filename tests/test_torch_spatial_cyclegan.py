@@ -22,6 +22,8 @@ spawned, f32, 32x32, batch 1, LSGAN, lambda_identity 0.5.
     two ranks resumed from that checkpoint repeat the second step bit for
     bit, and one process resumed from it takes the same step within the
     step's bounds.
+
+Every two-strip run above shares one spawn (``two_ranks``).
 """
 
 import hashlib
@@ -160,11 +162,36 @@ def _ranks(name, size, tmp_path):
     return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(size)]
 
 
+def _two_ranks(rank, out):
+    """Everything this file runs on two strips, in one spawn: the mix and
+    resnet recipes' steps (``_rank``), then the shell's run to its epoch 1
+    checkpoint and a second one resumed from it (``_shell_rank``)."""
+    for name in ("mix", "resnet"):
+        _rank(rank, name, 2, f"{out}/{name}")
+    _shell_rank(rank, out, 2, False)
+    torch.distributed.barrier()  # the checkpoint is on disk before any rank reads it
+    _shell_rank(rank, out, 2, True)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The root of the two-strip spawn's files (``_two_ranks``)."""
+    root = tmp_path_factory.mktemp("two_ranks")
+    for name in ("mix", "resnet"):
+        (root / name).mkdir()
+    multihost.spawn(_two_ranks, 2, (str(root),), timeout=TIMEOUT)
+    return root
+
+
+def _loaded(root, size):
+    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(size)]
+
+
 @pytest.mark.parametrize("name,size", [("mix", 2), ("resnet_pool", 4)])
-def test_cyclegan_step_on_strips_equals_one_process(name, size, tmp_path):
+def test_cyclegan_step_on_strips_equals_one_process(name, size, tmp_path, two_ranks):
     want_m, want_g, want_s = _run(name, None)
     floor_g = other_threads(_run, name, None)[1] if RECIPES[name]["floor"] else None
-    ranks = _ranks(name, size, tmp_path)
+    ranks = _loaded(two_ranks / name, size) if size == 2 else _ranks(name, size, tmp_path)
     assert all(r[0] == ranks[0][0] for r in ranks), "the ranks report different metrics"
     ranks_identical([r[2] for r in ranks], skip=("_images",))
     check_losses(ranks[0][0], want_m, LOSSES)
@@ -217,8 +244,8 @@ def _jax_metrics():
     return out
 
 
-def test_cyclegan_spatial2_step_matches_jax(tmp_path):
-    ranks = _ranks("resnet", 2, tmp_path)
+def test_cyclegan_spatial2_step_matches_jax(two_ranks):
+    ranks = _loaded(two_ranks / "resnet", 2)
     assert ranks[0][0] == ranks[1][0], "the ranks report different metrics"
     check_losses(ranks[0][0], _jax_metrics(), LOSSES)
 
@@ -270,16 +297,14 @@ def _shell_rank(rank, root, size, resume):
         torch.save(out, f"{root}/shell_{int(resume)}.pt")
 
 
-def test_cyclegan_checkpoint_on_strips_resumes(tmp_path):
+def test_cyclegan_checkpoint_on_strips_resumes(two_ranks):
     from dsgan_tpu_torch.utils import checkpoint as ckpt
 
-    root = str(tmp_path)
-    multihost.spawn(_shell_rank, 2, (root, 2, False), timeout=TIMEOUT)
+    root = str(two_ranks)
     saved = ckpt.restore_state(f"{root}/ck/c", 1)
     for side in "AB":  # whole images, whatever the mesh
         assert saved[f"pool_{side}_images"].shape == (1, 3, SIZE, SIZE)
         assert saved[f"pool_{side}_count"] == 1
-    multihost.spawn(_shell_rank, 2, (root, 2, True), timeout=TIMEOUT)
     (m_on, s_on), (m_re, s_re) = (torch.load(f"{root}/shell_{i}.pt", weights_only=False)
                                   for i in (0, 1))
     assert m_on == m_re

@@ -19,6 +19,8 @@ image rows over gloo ranks, spawned, f32.
     recipe (batch 4) against JAX's single-device ``make_train_step`` on the
     weights carried across (``utils/convert.py``): the losses at the same
     bounds and the running averages at ``tests/test_torch_zoo_step.py``'s.
+
+Every multi-rank run takes one spawn a rank count (``layer_runs``).
 """
 
 import numpy as np
@@ -86,9 +88,18 @@ def _layer(mesh, whole):
 
 
 def _layer_rank(rank, size, out):
+    """Every run of this file on ``size`` ranks, in one spawn: the layer on
+    a strip and whole, the step of the recipe of that size
+    (``STEP_RECIPES``), and on 4 ranks the batch_jax recipe over data 2 x
+    spatial 2."""
     torch.set_num_threads(1)
     mesh = resolve_mesh(1, size, batch_size=2, height=16)
-    torch.save({w: _layer(mesh, w) for w in (False, True)}, f"{out}/rank{rank}.pt")
+    res = {"layer": {w: _layer(mesh, w) for w in (False, True)}}
+    name = STEP_RECIPES[size]
+    res[name] = _run(name, resolve_mesh(1, size, batch_size=RECIPES[name]["batch"], height=SIZE))
+    if size == 4:
+        res["batch_jax"] = _run("batch_jax", resolve_mesh(2, 2, batch_size=4, height=SIZE))
+    torch.save(res, f"{out}/rank{rank}.pt")
 
 
 @pytest.fixture(scope="module")
@@ -97,7 +108,7 @@ def layer_runs(tmp_path_factory):
     for size in (2, 4):
         d = tmp_path_factory.mktemp(f"bn{size}")
         multihost.spawn(_layer_rank, size, (size, str(d)), timeout=TIMEOUT)
-        runs[size] = [torch.load(d / f"rank{r}.pt") for r in range(size)]
+        runs[size] = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(size)]
     return runs
 
 
@@ -105,7 +116,7 @@ def layer_runs(tmp_path_factory):
 @pytest.mark.parametrize("size", [2, 4])
 def test_batchnorm_on_strips_equals_one_process(layer_runs, size, whole):
     want = _layer(None, False)
-    ranks = [r[whole] for r in layer_runs[size]]
+    ranks = [r["layer"][whole] for r in layer_runs[size]]
     y = ranks[0][0] if whole else torch.cat([r[0] for r in ranks], 2)
     assert rel_l2(y, want[0]) <= 1e-6
     assert rel_l2(torch.cat([r[1] for r in ranks], 2), want[1]) <= 1e-6
@@ -120,6 +131,8 @@ def test_batchnorm_on_strips_equals_one_process(layer_runs, size, whole):
 
 RECIPES = {"batch": dict(norm="batch", batch=2), "none": dict(norm="none", batch=2),
            "batch_jax": dict(norm="batch", batch=4)}
+# the step recipe each rank count runs against one process
+STEP_RECIPES = {2: "batch", 4: "none"}
 
 
 def _build(name, rows):
@@ -159,23 +172,12 @@ def _run(name, mesh):
     return metrics, grads, state.state_dict()
 
 
-def _rank(rank, name, data, size, out):
-    torch.set_num_threads(1)
-    mesh = resolve_mesh(data, size, batch_size=RECIPES[name]["batch"], height=SIZE)
-    assert mesh.shape == (data, size)
-    torch.save(_run(name, mesh), f"{out}/rank{rank}.pt")
-
-
-def _ranks(name, data, size, tmp_path):
-    multihost.spawn(_rank, data * size, (name, data, size, str(tmp_path)), timeout=TIMEOUT)
-    return [torch.load(tmp_path / f"rank{r}.pt", weights_only=False) for r in range(data * size)]
-
-
 @pytest.mark.parametrize("name,size", [("batch", 2), ("none", 4)])
-def test_norm_step_on_strips_equals_one_process(name, size, tmp_path):
+def test_norm_step_on_strips_equals_one_process(name, size, layer_runs):
+    assert STEP_RECIPES[size] == name
     want_m, want_g, want_s = _run(name, None)
     _, floor_g, _ = other_threads(_run, name, None)
-    ranks = _ranks(name, 1, size, tmp_path)
+    ranks = [r[name] for r in layer_runs[size]]
     assert all(r[0] == ranks[0][0] for r in ranks), "the ranks report different metrics"
     ranks_identical([digest(r[2]) for r in ranks])
     check_losses(ranks[0][0], want_m, LOSSES)
@@ -223,10 +225,10 @@ def _jax_run():
     return out, stats, (eg, ed)
 
 
-def test_batchnorm_data2_spatial2_step_matches_jax(tmp_path):
+def test_batchnorm_data2_spatial2_step_matches_jax(layer_runs):
     from dsgan_tpu_torch.utils.convert import flatten, jax_from_state_dict
 
-    ranks = _ranks("batch_jax", 2, 2, tmp_path)
+    ranks = [r["batch_jax"] for r in layer_runs[4]]
     assert all(r[0] == ranks[0][0] for r in ranks), "the ranks report different metrics"
     ranks_identical([digest(r[2]) for r in ranks])
     want_m, want_stats, entries = _jax_run()

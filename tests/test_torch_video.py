@@ -114,9 +114,11 @@ def test_video_cli_matches_jax_flow_metrics(frames, key, monkeypatch):
 
 
 def test_video_cli_refuses_sharding_and_a_missing_card(frames):
-    with pytest.raises(NotImplementedError, match="item 21"):  # the rows of a U-Net
+    # the rows of a U-Net over two ranks, asked of one process
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
         video.main(["--dataroot", str(frames / "frames"), "--spatial_axis", "2",
-                    "--which_model_netG", "unet_128", "--checkpoints_dir", str(frames / "c")])
+                    "--which_model_netG", "unet_128", "--checkpoints_dir", str(frames / "c"),
+                    "--platform", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--platform cpu"):
             video.main(["--dataroot", str(frames / "frames"), "--checkpoints_dir",

@@ -5,8 +5,8 @@ of weights. D runs on the fake batch and then the real one
 (``fuse_d_batch`` off under BatchNorm). Every loss agrees to 1e-4 and the
 BatchNorm running statistics of G and D after the steps match JAX's.
 Also: one step updates G's statistics once and D's three times; dropout
-draws from the state's generator; the options take the zoo's flags and
-still refuse ROADMAP item 21."""
+draws from the state's generator; the options take the zoo's flags, on
+the spatial axis too."""
 
 import jax
 import jax.numpy as jnp
@@ -156,8 +156,8 @@ def test_options_take_the_zoo_flags_and_refuse_later_items(tmp_path):
         opt = opts().parse(argv=zoo)
         assert (opt.norm, opt.which_model_netG, opt.which_model_netD, opt.init_type) == \
             ("batch", "resnet_9blocks", "multi", "kaiming")
-    with pytest.raises(NotImplementedError, match="item 21"):
-        TrainOptions().parse(argv=zoo + ["--spatial_axis", "2"])
+    # the spatial axis runs the zoo too
+    assert TrainOptions().parse(argv=zoo + ["--spatial_axis", "2"]).spatial_axis == 2
     # items 15 and 16 are ported: CycleGAN, the unaligned dataset and FID/KID parse
     opt = TrainOptions().parse(argv=zoo + ["--model", "cycle_gan", "--dataset_mode", "unaligned"])
     assert (opt.model, opt.dataset_mode, opt.lambda_identity) == ("cycle_gan", "unaligned", 0.5)
