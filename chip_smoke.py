@@ -88,6 +88,19 @@ Phases, each of which fails the run:
      image) and the video CLI on 8 frames of its G_A (``temporal.csv``);
  11. FID (``fid_phase``): Inception pool3 features of 8 images on the card
      (f32, TF32 off) against the CPU's, with ms a batch;
+ 11b. the card against the port's CPU path (``card_vs_cpu_phase``): every
+     recipe of CVC_RECIPES (together every generator and discriminator of
+     the registry, every norm and model; the default recipe with VGG on the
+     K1-K4 f32 check builds) one f32 step at 256x256 on the CPU, on the
+     card from the CPU's states, and on the CPU in another order from
+     states one rounding off (the floor), every module's output and each
+     generator application's cotangent held at the CPU's on the last two:
+     each loss, module output, generator output and cotangent and every
+     parameter gradient read against the CPU's (``cvc_readings``), then the eval ops
+     (SSIM / PSNR on uint8 levels, MS-SSIM, 5-D SSIM, LK flow and its
+     warped error, the FID resize, the VGG taps); every reading under
+     CARD_VS_CPU["limit"] (``card_vs_cpu`` lines, one a recipe, and
+     ``card_vs_cpu_eval_ops``);
  12. diffusion (``diffusion_phase``): DenoiseUNet nf 64, 256x256, bf16,
      T 1000, seeded weights carried in through ``diffusion_entries``: 2 +
      5 train steps at batch 16 and at 1 (step ms, img/s, peak memory, a
@@ -131,6 +144,9 @@ Phases, each of which fails the run:
 ``--grad_spread N`` runs only one process's f32 first step at the spatial
 phase's config N times for each of its recipes and prints each weight's
 spread beside the halves' reading the spatial gate doubles (``grad_spread``).
+``--card_vs_cpu`` runs only phase 11b; ``--card_vs_cpu_faults`` runs it on
+CVC_FAULTS' recipes, clean and then with each fault planted on the card
+side, which its gate must refuse by 10x its limit.
 """
 
 import argparse
@@ -272,10 +288,61 @@ SP_STEPS = {False: 1, True: 2}
 _PIX2PIX_KEYS = ("loss_G", "loss_D", "loss_G_L1", "loss_ssim", "loss_tv")
 _CYCLE_KEYS = ("loss_G", "loss_G_A", "loss_cycle_A", "loss_idt_A", "loss_tv", "loss_D_A",
                "loss_D_B")
-SP_GATE_KEYS = {"pix2pix": SPATIAL["keys"], "cycle_gan": _CYCLE_KEYS, "diffusion": ("loss_G",),
-                "norm_batch": _PIX2PIX_KEYS,
+# (model, generator, discriminator, norm) of each recipe ``_sp_recipe``
+# builds (the spatial phase's "pix2pix" is ``_sp_steps``')
+RECIPES = {"default": ("pix2pix", "MixConvNeXtML", "basic", "instance"),
+           "norm_batch": ("pix2pix", "resnet_9blocks", "basic", "batch"),
+           "resnet6_nlayers_none": ("pix2pix", "resnet_6blocks", "n_layers", "none"),
+           **SP_ZOO,
+           "cycle_gan": ("cycle_gan", "MixConvNeXtML", "basic", "instance"),
+           "diffusion": ("diffusion", None, None, None)}
+SP_GATE_KEYS = {"pix2pix": SPATIAL["keys"], "diffusion": ("loss_G",),
                 **{r: _CYCLE_KEYS if m == "cycle_gan" else _PIX2PIX_KEYS
-                   for r, (m, _, _, _) in SP_ZOO.items()}}
+                   for r, (m, _, _, _) in RECIPES.items() if m != "diffusion"}}
+# The card against the port's CPU path (``card_vs_cpu_phase``): each of
+# CVC_RECIPES (together every generator and discriminator of
+# ``models/registry.py``, every norm and model; the default recipe with its
+# VGG term, on the K1-K4 f32 check builds) built on the CPU from its seed in
+# f32 at `size`, batch `batch` (CycleGAN's `cycle_batch`), its state dicts
+# copied to the card; one train step on each side from one numpy batch pair
+# (TF32 off, cuDNN's deterministic algorithms, dropout off, pools of 0,
+# diffusion's t and eps drawn from the seed and handed to both) at `lr` 0,
+# so that the G loss meets the D the CPU's does (Adam's first step is the
+# sign of each gradient: a rounding turns into a step of lr). On the card
+# every module's output and each generator application's cotangent are
+# held at the CPU's (``cvc_side``): each layer runs on the CPU's inputs and
+# every kink (ReLU, LeakyReLU, PReLU, max pools, L1, TV) decides as it did
+# there. Readings (``cvc_readings``): each loss of SP_GATE_KEYS, each
+# module's output (its forward on the CPU's inputs), each generator output
+# and cotangent, every parameter gradient of every network, rel-L2 against
+# the CPU's, over min(`cap`, max(1, the floor's same distance /
+# `resolution`)): the floor is the CPU's step again in another order, its
+# parameters, modules' outputs and their cotangents `floor_eta` off; a
+# gradient f32 does not resolve to `cap` x `resolution` (0 in exact
+# arithmetic, or a sum that cancels; or its RMS under `null` times its
+# network's) reads max|card - CPU| over its network's gradient norm. The
+# eval ops (``cvc_eval_ops``) read rel-L2 of their f32 forwards at `size`
+# (the 5-D SSIM on volumes `volume_depth` deep). Every reading must stay
+# under `limit`, set from clean readings on an H100 (PERF.md §6, the
+# card-vs-CPU finding): at least 10x the worst, at most 1e-3.
+# ``--card_vs_cpu_faults`` plants each of CVC_FAULTS on the card side of its
+# recipe alone, and the gate must refuse it by 10x the limit in the readings
+# it names.
+CARD_VS_CPU = dict(size=256, batch=2, cycle_batch=1, lr=0.0, null=1e-4, cap=10.0,
+                   resolution=1e-5, floor_eta=2.0 ** -21, limit=1e-3, volume_depth=16)
+CVC_RECIPES = ("default", "norm_batch", "resnet6_nlayers_none") + tuple(SP_ZOO) + (
+    "cycle_gan", "diffusion")
+# planted card faults: torch's own average pool in place of ``ops.pool_avg``
+# (the real torch fault of queue C), whose wrong input gradient reaches gll
+# as the cotangent the multiscale D's pools hand back (D's own gradients
+# never cross its pools: they act on its input; gll's are computed from the
+# CPU's cotangent, so only that cotangent reads it); a transposed conv's
+# weight gradient times 1 + 1e-2 on CUDA tensors; every conv's forward
+# output times 1 + 2e-2 on CUDA tensors, its gradient unchanged. (recipe,
+# the groups of readings the gate must refuse by 10x its limit)
+CVC_FAULTS = {"torch_pool": ("gll_multi", ("out_grad.netG.",)),
+              "transposed_gain": ("unet_pixel", ("grad.netG.",)),
+              "forward_gain": ("unet_pixel", ("module.netG.", "module.netD."))}
 # planted spatial-axis faults, each in the ranks alone: the halo rows zeroed;
 # the InstanceNorm statistics of the strip alone; K2's / K4's S sums not
 # summed over the row group; the fold dividing by the strip's H * W; the
@@ -2847,64 +2914,68 @@ def _fill_pools(torch, state, mesh):
         pool.count = pool.pool_size
 
 
-def _sp_recipe(torch, recipe, mesh, dtype):
-    """One of SP_RECIPES at full width on the card (the zoo's at ngf 64, D
-    ndf 32, dropout off), built from seed 0 on this rank's strip (the whole
-    image without a mesh), in ``dtype`` (f32: its pools empty, 0 images;
-    bf16: the CycleGAN recipes' pools of SPATIAL["pool"], full): (state,
-    step returning (metrics, out), {name: network})."""
-    from dsgan_tpu_torch.models import cycle_gan, define_D, define_G, diffusion, pix2pix
+def _sp_recipe(torch, recipe, mesh, dtype, device="cuda", size=None, ngf=64, use_vgg=False):
+    """One of RECIPES (the spatial phase's SP_RECIPES, the card_vs_cpu
+    phase's CVC_RECIPES) on ``device``, built from seed 0 on this rank's
+    strip (the whole image without a mesh) of a ``size``-square image
+    (default SPATIAL["size"]): the zoo's generators at ``ngf``,
+    MixConvNeXtML at its own widths, D ndf 32, dropout off; ``use_vgg``: a
+    pix2pix recipe's VGG term on (weight 1); in ``dtype`` (f32: its pools
+    empty, 0 images; bf16: the CycleGAN recipes' pools of SPATIAL["pool"],
+    full): (state, step returning (metrics, out), {name: network});
+    diffusion's step also takes ``t`` and ``eps``."""
+    from dsgan_tpu_torch.models import (
+        cycle_gan,
+        define_D,
+        define_G,
+        define_vgg,
+        diffusion,
+        pix2pix,
+    )
     from dsgan_tpu_torch.models.layers import set_batchnorm_mesh
 
-    dev, size = torch.device("cuda"), SPATIAL["size"]
+    if recipe not in RECIPES:
+        fail(f"no recipe {recipe!r}: {sorted(RECIPES)}")
+    model, which_g, which_d, norm = RECIPES[recipe]
+    dev, size = torch.device(device), size or SPATIAL["size"]
     rows = size // (mesh.spatial if mesh is not None else 1)
     bf16 = dtype == torch.bfloat16
-    if recipe == "cycle_gan":
-        cfg = cycle_gan.CycleGANConfig(pool_size=SPATIAL["pool"] if bf16 else 0,
-                                       lambda_identity=0.5)
-        nets = [define_G(3, 3, 32, "MixConvNeXtML", dtype=dtype, device=dev, seed=i, train=True)
-                for i in range(2)]
-        nets += [define_D(3, 32, "basic", dtype=dtype, device=dev, seed=2 + i) for i in range(2)]
-        state = cycle_gan.init_state(*nets, cfg, (rows, size), seed=0)
-        if bf16:
-            _fill_pools(torch, state, mesh)
-        return state, cycle_gan.make_cyclegan_step(cfg, mesh), dict(zip(cycle_gan.NETS, nets))
-    if recipe == "diffusion":
+    if model == "diffusion":
         net = diffusion.define_denoiser(3, 3, DIFF["nf"], dtype, dev, seed=0)
         cfg = diffusion.DiffusionConfig(timesteps=DIFF["timesteps"],
                                         compute_dtype=dtype if bf16 else None)
         step = diffusion.make_diffusion_train_step(cfg, mesh)
         return (diffusion.init_state(net, cfg, seed=0),
-                lambda s, a, b, lr: (step(s, a, b, lr), None), {"net": net})
-    if recipe in SP_ZOO and SP_ZOO[recipe][0] == "cycle_gan":
-        _, which_g, which_d, norm = SP_ZOO[recipe]
+                lambda s, a, b, lr, **draws: (step(s, a, b, lr, **draws), None), {"net": net})
+    width = 32 if which_g == "MixConvNeXtML" else ngf
+    n_layers_D = 4 if which_d == "n_layers" else 3
+
+    def G(seed):
+        return define_G(3, 3, width, which_g, norm=norm, use_dropout=False, dtype=dtype,
+                        device=dev, seed=seed, train=True)
+
+    def D(input_nc, seed):
+        return define_D(input_nc, 32, which_d, n_layers_D, norm=norm, dtype=dtype, device=dev,
+                        seed=seed)
+
+    if model == "cycle_gan":
         cfg = cycle_gan.CycleGANConfig(pool_size=SPATIAL["pool"] if bf16 else 0,
                                        lambda_identity=0.5)
-        nets = [define_G(3, 3, 64, which_g, norm=norm, use_dropout=False, dtype=dtype,
-                         device=dev, seed=i, train=True) for i in range(2)]
-        nets += [define_D(3, 32, which_d, norm=norm, dtype=dtype, device=dev, seed=2 + i)
-                 for i in range(2)]
+        nets = [G(0), G(1), D(3, 2), D(3, 3)]
         state = cycle_gan.init_state(*nets, cfg, (rows, size), seed=0)
         if bf16:
             _fill_pools(torch, state, mesh)
         return state, cycle_gan.make_cyclegan_step(cfg, mesh), dict(zip(cycle_gan.NETS, nets))
-    if recipe == "norm_batch":
-        which_g, which_d, norm = "resnet_9blocks", "basic", "batch"
-    elif recipe in SP_ZOO:
-        _, which_g, which_d, norm = SP_ZOO[recipe]
-    else:
-        fail(f"spatial: no recipe {recipe!r}")
-    G = define_G(3, 3, 64, which_g, norm=norm, use_dropout=False, dtype=dtype, device=dev,
-                 seed=0, train=True)
-    D = define_D(6, 32, which_d, norm=norm, dtype=dtype, device=dev, seed=1)
-    cfg = pix2pix.Pix2PixConfig(pool_size=0, use_vgg=False, w_vgg=0.0,
+    netG, netD = G(0), D(6, 1)
+    vgg = define_vgg(4, dtype=dtype, device=dev, seed=2) if use_vgg else None
+    cfg = pix2pix.Pix2PixConfig(pool_size=0, use_vgg=use_vgg, w_vgg=1.0 if use_vgg else 0.0,
                                 compute_dtype=dtype if bf16 else None,
                                 fuse_d_batch=norm != "batch")
-    state = pix2pix.init_state(G, D, None, cfg, (rows, size), seed=0)
+    state = pix2pix.init_state(netG, netD, vgg, cfg, (rows, size), seed=0)
     if mesh is not None:
-        for net in (G, D):
+        for net in (netG, netD):
             set_batchnorm_mesh(net, mesh)
-    return state, pix2pix.make_train_step(cfg, mesh), {"netG": G, "netD": D}
+    return state, pix2pix.make_train_step(cfg, mesh), {"netG": netG, "netD": netD}
 
 
 def _sp_recipe_steps(torch, np, bc, mesh, recipe, dtype, steps=None):
@@ -3345,6 +3416,473 @@ def _spread(torch, np, bc, card, n, recipe, deterministic):
     return dict(summary=summary, rows=rows)
 
 
+def cvc_inputs(np, recipe, size, batch):
+    """A recipe's step inputs from a seed: a uint8 (A, B) batch pair, and
+    for diffusion the t and eps both sides take."""
+    rng = np.random.default_rng(13)
+    a, b = (rng.integers(0, 256, (batch, size, size, 3), dtype=np.uint8) for _ in range(2))
+    draws = {}
+    if RECIPES[recipe][0] == "diffusion":
+        draws = dict(t=rng.integers(0, DIFF["timesteps"], (batch,)),
+                     eps=rng.standard_normal((batch, 3, size, size)).astype(np.float32))
+    return (a, b), draws
+
+
+def _copy(t):
+    """A detached f32 copy of ``t`` on the CPU (a CPU tensor's own storage
+    is not kept: the step may write it in place later)."""
+    return t.detach().float().to("cpu", copy=True)
+
+
+def cvc_side(torch, recipe, device, inputs, size, ngf=64, init=None, patches=(), pin=None,
+             jitter=0.0):
+    """One f32 train step of ``recipe`` (``_sp_recipe``; the default
+    recipe with its VGG term) on ``device``, from the networks' states
+    ``init`` where given, ``patches`` started around the build and the
+    step. Every module's tensor output is recorded, call by call, and each
+    generator application's cotangent. With ``pin`` (another side's
+    record) every module's output is held at ``pin``'s value (its
+    gradient still reaching the module), so that each layer runs on the
+    other side's inputs and every kink (ReLU, LeakyReLU, PReLU, a max
+    pool, L1, TV) decides as it did there, and each generator
+    application's cotangent, once recorded, is replaced by ``pin``'s: a
+    generator's backward then starts from the other side's cotangent.
+    ``jitter`` (the floor's): every pinned value and every cotangent
+    reaching a pinned module output scaled by 1 +- jitter, the sign at
+    random, a generator's output alone held exact. Returns the metrics, the
+    generators' outputs and cotangents ({net: [one a call]}), the modules'
+    outputs, every parameter gradient, the parameters without one, the
+    networks' states before the step, the step's seconds and, on the card,
+    its K1-K4 launches; tensors are CPU copies."""
+    from dsgan_tpu_torch.kernels import block_core as bc
+
+    (a, b), draws = inputs
+    dev = torch.device(device)
+    for p in patches:
+        p.start()
+    try:
+        state, step, nets = _sp_recipe(torch, recipe, None, torch.float32, dev, size, ngf,
+                                       use_vgg=recipe == "default")
+        if init is not None:
+            for n, net in nets.items():
+                net.load_state_dict(init[n])
+        before = _nets_state(nets)
+        gens = [n for n in nets if n.startswith("netG") or n == "net"]
+        outs, cots, mods = {n: [] for n in gens}, {n: [] for n in gens}, {}
+
+        signs = torch.Generator().manual_seed(1)
+
+        def jittered(t, scale):
+            """``t`` with each entry scaled by 1 +- ``scale``, the sign at random."""
+            if not scale:
+                return t
+            sign = torch.where(torch.rand(t.shape, generator=signs) < 0.5, -1.0, 1.0)
+            return t * (1 + scale * sign).to(t)
+
+        def held(key, y, scale=0.0):
+            """Record ``y`` under ``key``; with ``pin`` return ``pin``'s value,
+            it and its cotangent ``jittered`` by ``scale``."""
+            mods.setdefault(key, []).append(_copy(y))
+            if pin is None:
+                return y
+            out = y + (jittered(pin["mods"][key][len(mods[key]) - 1], scale).to(y) - y).detach()
+            if scale and out.requires_grad:
+                out.register_hook(lambda g: jittered(g, scale))
+            return out
+
+        def module_hook(key):
+            def hook(mod, args, y):
+                return held(key, y, jitter) if isinstance(y, torch.Tensor) else None
+            return hook
+
+        def generator_hook(n):
+            def hook(mod, args, y):
+                k = len(outs[n])
+                outs[n].append(_copy(y))
+                cots[n].append(None)
+                y = held(n, y)
+
+                def cotangent(g):
+                    cots[n][k] = _copy(g)
+                    return None if pin is None else jittered(pin["cots"][n][k], jitter).to(g)
+                y.register_hook(cotangent)
+                return y
+            return hook
+        every = dict(nets, vgg=state.vgg) if getattr(state, "vgg", None) is not None else nets
+        hooks = [m.register_forward_hook(module_hook(f"{n}.{name}" if name else n))
+                 for n, net in every.items() for name, m in net.named_modules()
+                 if name or n not in gens]
+        hooks += [nets[n].register_forward_hook(generator_hook(n)) for n in gens]
+        a, b = (torch.from_numpy(x).to(dev) for x in (a, b))
+        zero_counts(bc)
+        t0 = time.perf_counter()
+        m, _ = step(state, a, b, CARD_VS_CPU["lr"],
+                    **{k: torch.from_numpy(v) for k, v in draws.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+        grads = {n: {k: _copy(q.grad) for k, q in net.named_parameters()
+                     if q.grad is not None} for n, net in nets.items()}
+        no_grad = [f"{n}.{k}" for n, net in nets.items() for k, q in net.named_parameters()
+                   if q.grad is None]
+    finally:
+        for p in reversed(patches):
+            p.stop()
+    return dict(metrics={k: float(v) for k, v in m.items()}, outs=outs, cots=cots, mods=mods,
+                grads=grads, no_grad=no_grad, init=before, seconds=seconds,
+                launches=read_counts(bc) if dev.type == "cuda" else None)
+
+
+def _cvc_raw(torch, got, want, keys):
+    """A step's distances to the reference step (``want``): each loss of
+    ``keys`` relative; each module call's output (but a generator's, read
+    as its output), each generator application's output and cotangent and
+    each parameter gradient rel-L2 (inf where missing or misshapen); and
+    each gradient's max|got - want| over its network's gradient norm."""
+    def rel(g, w):
+        return math.inf if g is None or w is None or g.shape != w.shape else rel_l2(g, w)
+
+    raw, peak = {}, {}
+    for k in keys:
+        w = want["metrics"][k]
+        raw[f"loss.{k}"] = abs(got["metrics"][k] - w) / max(abs(w), 1e-30)
+    for key in set(want["mods"]) | set(got["mods"]):
+        if key not in want["outs"]:
+            ws, gs = want["mods"].get(key, []), got["mods"].get(key, [])
+            raw.update({f"module.{key}.{k}": rel(gs[k] if k < len(gs) else None,
+                                                 ws[k] if k < len(ws) else None)
+                        for k in range(max(len(ws), len(gs)))})
+    for n in want["outs"]:
+        for part, what in (("outs", "output"), ("cots", "out_grad")):
+            pairs = zip(got[part][n], want[part][n])
+            raw.update({f"{what}.{n}.{k}": rel(g, w) for k, (g, w) in enumerate(pairs)})
+    for n, grads in want["grads"].items():
+        norm = float(torch.cat([g.reshape(-1) for g in grads.values()]).norm())
+        for k in set(grads) | set(got["grads"][n]):
+            name, g, h = f"grad.{n}.{k}", grads.get(k), got["grads"][n].get(k)
+            raw[name] = rel(h, g)
+            peak[name] = float((h - g).abs().max()) / norm if raw[name] < math.inf else math.inf
+    return raw, peak
+
+
+def cvc_readings(torch, got, want, floor, keys):
+    """The readings of a step (``got``) against the reference step
+    (``want``), beside ``floor``: the reference's step again, on the CPU in
+    another order (``_cvc_other_order``), its parameters, module outputs
+    (but the generators') and their cotangents a few roundings off
+    (CARD_VS_CPU["floor_eta"]), both pinned to ``want`` (``cvc_side``).
+    Each distance of ``_cvc_raw`` over its divisor, min(CARD_VS_CPU["cap"],
+    max(1, the floor's same distance / CARD_VS_CPU["resolution"])): plain
+    where f32 resolves the quantity to the resolution, in units of f32's
+    own reach on it where it does not (a sum that cancels), never more
+    than `cap` of them. A gradient f32 does not resolve to `cap` x
+    `resolution` (the floor's rel-L2 that far off: 0 in exact arithmetic,
+    as a bias straight into an InstanceNorm or BatchNorm, or a sum that
+    cancels), or whose RMS is under CARD_VS_CPU["null"] times its
+    network's, is read by max|got - want| over its network's gradient
+    norm, in the same units. Returns ({name: reading}, {name: (distance,
+    floor's distance)}, the names read as null, {name: divisor}, {name: the
+    floor's distance / resolution where it is over `cap`})."""
+    cap, resolution = CARD_VS_CPU["cap"], CARD_VS_CPU["resolution"]
+    raw, peak = _cvc_raw(torch, got, want, keys)
+    fl, fl_peak = _cvc_raw(torch, floor, want, keys)
+    small = set()
+    for n, grads in want["grads"].items():
+        rms = float(torch.cat([g.reshape(-1) for g in grads.values()]).norm()) / math.sqrt(
+            sum(g.numel() for g in grads.values()))
+        small |= {f"grad.{n}.{k}" for k, g in grads.items()
+                  if float(g.norm()) / math.sqrt(g.numel()) <= CARD_VS_CPU["null"] * rms}
+    nulls = sorted(k for k in peak if k in small or not fl[k] < cap * resolution)
+    dist = {k: (peak[k], fl_peak[k]) if k in nulls else (raw[k], fl[k]) for k in raw}
+    div = {k: min(cap, max(1.0, f / resolution)) for k, (_, f) in dist.items()}
+    capped = {k: f / resolution for k, (_, f) in dist.items() if not f / resolution <= cap}
+    read = {k: d / div[k] for k, (d, _) in dist.items()}
+    return read, dist, nulls, div, capped
+
+
+def cvc_perturbed(torch, states):
+    """``states`` ({net: state dict}) with every floating entry scaled by
+    1 +- CARD_VS_CPU["floor_eta"], the sign at random from a seed: the
+    floor's start, which with ``_cvc_other_order`` moves every backward's
+    operands and sums as another implementation's arithmetic does."""
+    gen = torch.Generator().manual_seed(0)
+    eta = CARD_VS_CPU["floor_eta"]
+    out = {}
+    for n, sd in states.items():
+        out[n] = {}
+        for k, v in sd.items():
+            if v.is_floating_point():
+                sign = torch.where(torch.rand(v.shape, generator=gen) < 0.5, -1.0, 1.0)
+                v = v * (1 + eta * sign).to(v.dtype)
+            out[n][k] = v
+    return out
+
+
+class _Threads:
+    """Start / stop: run with ``n`` CPU threads."""
+
+    def __init__(self, torch, n):
+        self.torch, self.n = torch, n
+
+    def start(self):
+        self.saved = self.torch.get_num_threads()
+        self.torch.set_num_threads(self.n)
+
+    def stop(self):
+        self.torch.set_num_threads(self.saved)
+
+
+def _cvc_other_order(torch):
+    """The floor's patches: the step's images in contiguous memory (the
+    convolutions then take other algorithms) and half the CPU threads (the
+    reductions other splits), so that its sums run in another order."""
+    from unittest import mock
+
+    from dsgan_tpu_torch.models import pix2pix
+
+    return [mock.patch.object(pix2pix, "CL", torch.contiguous_format),
+            _Threads(torch, max(1, torch.get_num_threads() // 2))]
+
+
+def _over(read, limit):
+    """The readings over ``limit`` (NaN too), worst first."""
+    return sorted((k for k, v in read.items() if not v <= limit),
+                  key=lambda k: -read[k] if read[k] == read[k] else -math.inf)
+
+
+def cvc_compare(torch, np, recipe, device, size, batch, ngf=64, patches=()):
+    """``recipe``'s f32 step on the CPU (the reference), on the CPU from
+    the reference's states one unit in the last place off (the floor) and
+    on ``device`` from the reference's states, on the same inputs
+    (``cvc_inputs``), the last two pinned to the reference (``cvc_side``);
+    ``patches`` on the ``device`` side alone. Returns (the recipe's line:
+    its three worst readings with their distances, the losses', the
+    generator outputs' and cotangents', the modules' count and worst, the
+    null gradients', the largest divisor and the readings whose floor it
+    caps, those over ``limit``, each side's seconds and the device side's
+    launches; all readings; {name: (distance, floor's distance)})."""
+    model, which_g, which_d, norm = RECIPES[recipe]
+    inputs = cvc_inputs(np, recipe, size, batch)
+    want = cvc_side(torch, recipe, "cpu", inputs, size, ngf)
+    floor = cvc_side(torch, recipe, "cpu", inputs, size, ngf,
+                     init=cvc_perturbed(torch, want["init"]), patches=_cvc_other_order(torch),
+                     pin=want, jitter=CARD_VS_CPU["floor_eta"])
+    got = cvc_side(torch, recipe, device, inputs, size, ngf, init=want["init"], patches=patches,
+                   pin=want)
+    read, dist, nulls, div, capped = cvc_readings(torch, got, want, floor, SP_GATE_KEYS[recipe])
+    if got["no_grad"] != want["no_grad"]:
+        read["no_grad"], dist["no_grad"], div["no_grad"] = math.inf, (math.inf, 0.0), 1.0
+    limit = CARD_VS_CPU["limit"]
+    over = _over(read, limit)
+    worst = _over({k: v for k, v in read.items() if k not in nulls}, -1.0)[:3]
+    modules = [k for k in read if k.startswith("module.")]
+    line = dict(recipe=recipe, model=model, G=which_g, D=which_d, norm=norm, size=size,
+                batch=batch, readings=len(read), limit=limit,
+                worst={k: dict(reading=read[k], distance=dist[k][0], floor=dist[k][1])
+                       for k in worst},
+                losses={k: v for k, v in read.items() if k.startswith("loss.")},
+                outputs={k: v for k, v in read.items() if k.startswith(("output.", "out_grad."))},
+                modules=dict(count=len(modules), worst={k: read[k] for k in _over(
+                    {k: read[k] for k in modules}, -1.0)[:3]}),
+                null={k: read[k] for k in nulls}, no_grad=want["no_grad"],
+                divisors=dict(largest=max(div.values()), over_1=sum(v > 1 for v in div.values()),
+                              capped=len(capped), capped_worst=dict(sorted(
+                                  capped.items(), key=lambda kv: -kv[1])[:5])),
+                over={k: dict(reading=read[k], distance=dist[k][0], floor=dist[k][1])
+                      for k in over},
+                seconds=dict(cpu=want["seconds"], floor=floor["seconds"], device=got["seconds"]),
+                launches=got["launches"])
+    return line, read, dist
+
+
+def cvc_eval_ops(torch, np, device, size=CARD_VS_CPU["size"], layout=None):
+    """The eval ops' f32 forwards on ``device`` against the CPU's, on the
+    same inputs from a seed at ``size``: ``ssim_uint8`` / ``psnr_uint8``
+    (the step's metrics), ``ms_ssim`` (the eval CLI's, per image), the 5-D
+    SSIM (per volume), ``flow.estimate_flow`` then ``flow_warped_error``
+    (the video CLI's) on a pair of frames one shifted by (2, 1) pixels,
+    ``inception.prepare_images`` (the FID resize), and each of the four
+    VGG taps (the perceptual loss); ``layout`` the ``device`` side's image
+    batches' memory format (as given, contiguous, by default). Returns
+    ({op: rel-L2}, the CPU's values of the scalar ops)."""
+    from dsgan_tpu_torch import ops
+    from dsgan_tpu_torch.models import define_vgg, inception
+    from dsgan_tpu_torch.ops import flow
+
+    rng = np.random.default_rng(17)
+    b = CARD_VS_CPU["batch"]
+    smooth = rng.standard_normal((b, 3, size // 8, size // 8)).astype(np.float32)
+    smooth = np.repeat(np.repeat(smooth, 8, 2), 8, 3)
+    label = np.clip(np.round(127.5 + 50 * smooth + 20 * rng.standard_normal(smooth.shape)),
+                    0, 255).astype(np.float32)
+    result = np.clip(label + np.round(12 * rng.standard_normal(label.shape)), 0, 255)
+    image = (label / 127.5 - 1).astype(np.float32)
+    depth = CARD_VS_CPU["volume_depth"]
+    vol = rng.uniform(-1, 1, (1, 1, depth, size, size)).astype(np.float32)
+    vol2 = (vol + 0.2 * rng.standard_normal(vol.shape)).astype(np.float32)
+    frame0 = image[0].transpose(1, 2, 0)
+    frame1 = np.roll(frame0, (1, 2), (0, 1)) + 0.02 * rng.standard_normal(frame0.shape)
+    outs = [np.tanh(f + 0.1 * rng.standard_normal(f.shape)) for f in (frame0, frame1)]
+    vgg_cpu = define_vgg(4, dtype=torch.float32, device="cpu", seed=2)
+
+    def on(dev, layout=torch.contiguous_format):
+        t = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev) for k, v in dict(
+            label=label, result=result, image=image, vol=vol, vol2=vol2, f0=frame0, f1=frame1,
+            o0=outs[0], o1=outs[1]).items()}
+        t.update({k: t[k].contiguous(memory_format=layout) for k in ("label", "result", "image")})
+        vgg = define_vgg(4, dtype=torch.float32, device=dev, seed=2)
+        vgg.load_state_dict(vgg_cpu.state_dict())
+        res = dict(ssim_uint8=ops.ssim_uint8(t["label"], t["result"]),
+                   psnr_uint8=ops.psnr_uint8(t["label"], t["result"]),
+                   ms_ssim=ops.ms_ssim(t["label"], t["result"], data_range=255,
+                                       size_average=False),
+                   ssim_5d=ops.ssim(t["vol"], t["vol2"], data_range=2.0, size_average=False))
+        fl = flow.estimate_flow(t["f0"], t["f1"])
+        res["estimate_flow"] = fl
+        res["flow_warped_error"] = torch.stack(flow.flow_warped_error(t["o0"], t["o1"], t["f0"],
+                                                                      t["f1"], fl))
+        res["resize_bilinear"] = inception.prepare_images(t["image"])
+        with torch.no_grad():
+            res.update({f"vgg_tap{i}": tap for i, tap in enumerate(vgg(t["image"]))})
+        return {k: v.detach().float().cpu() for k, v in res.items()}
+
+    want, got = on(torch.device("cpu")), on(torch.device(device), layout or torch.contiguous_format)
+    values = {k: v.tolist() for k, v in want.items() if v.numel() <= 2}
+    return {k: rel_l2(got[k], want[k]) for k in want}, values
+
+
+def _cvc_plant(torch, fault):
+    """The patches that plant one of CVC_FAULTS on the card side."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from dsgan_tpu_torch.ops import conv
+
+    if fault == "torch_pool":
+        def torch_pool(x, window, stride, padding, count_include_pad):
+            return F.avg_pool2d(x, window, stride, padding, count_include_pad=count_include_pad)
+        return [mock.patch.object(conv, "pool_avg", torch_pool)]
+    if fault == "transposed_gain":
+        class Gain(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, w):
+                return w.view_as(w)
+
+            @staticmethod
+            def backward(ctx, g):
+                return g * (1 + 1e-2) if g.is_cuda else g
+
+        conv_t = F.conv_transpose2d
+
+        def gained(x, w, *args, **kw):
+            return conv_t(x, Gain.apply(w) if x.is_cuda else w, *args, **kw)
+        return [mock.patch.object(F, "conv_transpose2d", gained)]
+    if fault == "forward_gain":
+        conv2d = F.conv2d
+
+        def forward_gained(x, *args, **kw):
+            y = conv2d(x, *args, **kw)
+            return y + 2e-2 * y.detach() if x.is_cuda else y
+        return [mock.patch.object(F, "conv2d", forward_gained)]
+    fail(f"card_vs_cpu: no planted fault {fault!r}: {sorted(CVC_FAULTS)}")
+
+
+def _cvc_batch(recipe):
+    return CARD_VS_CPU["cycle_batch" if RECIPES[recipe][0] == "cycle_gan" else "batch"]
+
+
+def card_vs_cpu_phase(torch, np, card, faults=False, out=None):
+    """Each of CVC_RECIPES' f32 step on the card against the port's CPU
+    path (``cvc_compare``), the launches of the K1-K4 f32 check builds
+    where the recipe runs them (the default's 5 / 4 / 5 / 4, CycleGAN's
+    CYCLE_PER_STEP, else none), and the eval ops (``cvc_eval_ops``): one
+    ``card_vs_cpu`` line a recipe, one ``card_vs_cpu_eval_ops`` line, and
+    every reading under CARD_VS_CPU["limit"] or the run fails naming the
+    recipe and tensor. With ``faults`` (``--card_vs_cpu_faults``): the
+    recipes of CVC_FAULTS clean, then each fault planted on the card side
+    of its recipe, which the gate must refuse by 10x the limit in each
+    group of readings CVC_FAULTS names; torch's own pool is planted only where
+    ``avg_pool_check`` still reads it wrong on the card, else that fact is
+    recorded."""
+    size, limit = CARD_VS_CPU["size"], CARD_VS_CPU["limit"]
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    t_start = time.perf_counter()
+    res, problems = dict(card=card, size=size, limit=limit, recipes={}), []
+    try:
+        recipes = tuple(dict.fromkeys(r for r, _ in CVC_FAULTS.values())) if faults \
+            else CVC_RECIPES
+        for recipe in recipes:
+            line, read, dist = cvc_compare(torch, np, recipe, "cuda", size, _cvc_batch(recipe))
+            res.setdefault("readings", {})[recipe] = read
+            res.setdefault("distances", {})[recipe] = dist
+            per = ({"K1": 5, "K3": 4, "K2": 5, "K4": 4} if recipe == "default" else
+                   CYCLE_PER_STEP if recipe == "cycle_gan" else {k: 0 for k in CYCLE_PER_STEP})
+            print(json.dumps({"card_vs_cpu": line}))
+            res["recipes"][recipe] = line
+            problems += [f"{recipe}: {k} reads {v['reading']:.3g}, over {limit}" for k, v in
+                         line["over"].items()]
+            if line["launches"] != per:
+                problems.append(f"{recipe}: the card's step launched {line['launches']}, "
+                                f"want {per}")
+            torch.cuda.empty_cache()
+        if not faults:
+            ev, values = cvc_eval_ops(torch, np, "cuda")
+            res["eval_ops"] = dict(readings=ev, cpu_values=values)
+            print(json.dumps({"card_vs_cpu_eval_ops": dict(card=card, size=size, limit=limit,
+                                                           readings=ev, cpu_values=values)}))
+            problems += [f"eval op {k} reads {ev[k]:.3g}, over {limit}" for k in _over(ev, limit)]
+        else:
+            res["faults"] = _cvc_faults(torch, np, card)
+            problems += res["faults"].pop("problems")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    res["seconds"] = time.perf_counter() - t_start
+    print(json.dumps({"card_vs_cpu_seconds": res["seconds"]}))
+    if out:  # written before the verdict, so that a failed run keeps its readings
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "chip_smoke_card_vs_cpu.json"), "w") as f:
+            json.dump(dict(res, problems=problems), f, indent=1)
+    if problems:
+        fail("card_vs_cpu: " + "; ".join(problems))
+    return res
+
+
+def _cvc_faults(torch, np, card):
+    """``--card_vs_cpu_faults``' planted runs: {fault: the readings over
+    the limit, the worst of each group of readings CVC_FAULTS names over
+    the limit, the line's divisors}, and the problems (a fault the gate
+    did not refuse by 10x the limit in every group it names)."""
+    limit, out, problems = CARD_VS_CPU["limit"], {}, []
+    pool = avg_pool_check(torch)
+    for fault, (recipe, groups) in CVC_FAULTS.items():
+        if fault == "torch_pool" and not pool["torch_avg_pool2d"] > 10 * limit:
+            out[fault] = dict(recipe=recipe, torch_pool_reads=pool["torch_avg_pool2d"],
+                              note="torch's own pool is right on this card: nothing to plant")
+            print(json.dumps({"card_vs_cpu_fault": dict(fault=fault, **out[fault])}))
+            continue
+        line, read, _ = cvc_compare(torch, np, recipe, "cuda", CARD_VS_CPU["size"],
+                                    _cvc_batch(recipe), patches=_cvc_plant(torch, fault))
+        named = {grp: max((v for k, v in read.items() if k.startswith(grp)), default=0.0) / limit
+                 for grp in groups}
+        out[fault] = dict(recipe=recipe, card=card, over=len(line["over"]),
+                          first_over={k: v["reading"] for k, v in list(line["over"].items())[:8]},
+                          worst_over_limit=named, divisors=line["divisors"],
+                          networks_over=sorted({k.split(".")[1] for k in line["over"]}))
+        print(json.dumps({"card_vs_cpu_fault": dict(fault=fault, **out[fault])}))
+        short = [grp for grp in groups if not named[grp] >= 10]
+        if short:
+            problems.append(f"the gate did not refuse {fault} in {recipe} by 10x its limit on "
+                            f"{short}: {named}")
+        torch.cuda.empty_cache()
+    out["problems"] = problems
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description="On-card check of dsgan_tpu_torch")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json")
@@ -3365,6 +3903,13 @@ def main(argv=None):
                     help="only run one process's f32 first step at the spatial phase's config N "
                          "times for each recipe, print each weight's spread across the runs "
                          "beside the halves' reading the spatial gate doubles, and exit")
+    ap.add_argument("--card_vs_cpu", action="store_true",
+                    help="only run the card_vs_cpu phase (every recipe's f32 step and the eval "
+                         "ops on the card against the port's CPU path), and exit")
+    ap.add_argument("--card_vs_cpu_faults", action="store_true",
+                    help="only run the card_vs_cpu comparison of CVC_FAULTS' recipes, then once "
+                         "with each fault planted on the card side, which its gate must refuse, "
+                         "and exit")
     ap.add_argument("--profile_trials", type=int, metavar="N",
                     help="only trace the graph phase's eager and replayed steps N times each, "
                          "without and with the trace's settling wait, count the traces that "
@@ -3440,6 +3985,12 @@ def main(argv=None):
                 json.dump(res, f, indent=1)
         print(f"chip_smoke: the remat phase passed in {time.perf_counter() - t_start:.1f} s")
         return 0
+    if args.card_vs_cpu or args.card_vs_cpu_faults:
+        _card_flags(torch)
+        card_vs_cpu_phase(torch, np, card, faults=args.card_vs_cpu_faults, out=args.out)
+        print("chip_smoke: the card_vs_cpu phase passed"
+              + (" and its gate refused every planted fault" if args.card_vs_cpu_faults else ""))
+        return 0
     if args.spatial or args.spatial_faults:
         _card_flags(torch)
         res, _ = spatial_phase(torch, np, bc, card,
@@ -3471,6 +4022,7 @@ def main(argv=None):
     zoo = zoo_phase(torch, np, bc, card)
     cyclegan, cycle_launches = cyclegan_phase(torch, np, bc, card)
     fid = fid_phase(torch, np, card)
+    cvc = card_vs_cpu_phase(torch, np, card)
     diff = diffusion_phase(torch, np, bc, card)
     dp, dp_launches = dp_phase(torch, np, bc, card)
     sp, sp_launches = spatial_phase(torch, np, bc, card)
@@ -3503,7 +4055,7 @@ def main(argv=None):
             json.dump(dict(card=card, kind=kind, rows=rows, bwd_rows=bwd_rows, serving=serving,
                            generator_agreement=agree, export=exported, training=training,
                            graph=graphed, remat=remat, cli=cli, zoo=zoo, cyclegan=cyclegan,
-                           fid=fid,
+                           fid=fid, card_vs_cpu=cvc,
                            diffusion=diff, dp=dp, spatial=sp, kernels=kernels,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

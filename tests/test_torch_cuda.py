@@ -624,3 +624,43 @@ def test_average_pool_gradient_on_the_card_matches_the_cpu(cuda, window, stride,
     got = grad(x.to(cuda).contiguous(memory_format=torch.channels_last))
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("recipe,size", [("gll_multi", 64), ("cycle_unet_multi", 128)])
+def test_card_vs_cpu_small_recipes_read_under_the_limit(cuda, monkeypatch, recipe, size):
+    """``chip_smoke.cvc_compare`` on the card at a small size (ngf 8): one
+    f32 step against the port's CPU path, every module's output held at
+    the CPU's, every reading under the card_vs_cpu phase's limit; on
+    cuDNN's deterministic algorithms, TF32 off."""
+    import chip_smoke
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    line, read, _ = chip_smoke.cvc_compare(torch, np, recipe, "cuda", size, 1, ngf=8)
+    print(recipe, {k: v["reading"] for k, v in line["worst"].items()})
+    assert not line["over"], line["over"]
+    assert len(read) == line["readings"] > 40
+
+
+def test_conv_bias_gradient_on_the_card_is_the_sum(cuda):
+    """``ops.conv2d``'s fused bias on the card: its gradient is the
+    cotangent's sum to float32's rounding, on a 3-channel output at 256x256
+    in channels_last memory and the cotangent of signs an L1 term hands
+    back (the CPU's fused bias lands about 1e-5 off it: the card_vs_cpu
+    phase reads that as the card's distance, PERF.md §6)."""
+    from dsgan_tpu_torch import ops
+
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((1, 16, 256, 256)).astype(np.float32)).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.from_numpy((0.05 * rng.standard_normal((3, 16, 3, 3))).astype(np.float32)).to(cuda)
+    b = torch.zeros(3, device=cuda, requires_grad=True)
+    y = ops.conv2d(x, w, b, padding=1)
+    g = (np.sign(rng.standard_normal(tuple(y.shape)))
+         + 0.01 * rng.standard_normal(tuple(y.shape))) / y[0, 0].numel()
+    g = torch.from_numpy(g.astype(np.float32)).to(cuda)
+    g = g.contiguous(memory_format=torch.channels_last)
+    y.backward(g)
+    exact = g.double().sum(dim=(0, 2, 3))
+    assert float((b.grad.double() - exact).norm() / exact.norm()) <= 1e-6
