@@ -1,0 +1,22 @@
+"""K1/K3 (the block-core forward kernels) in training: the least time of the
+traced steps' block-core forward calls (their FLOPs and bytes by
+``roofline.fwd_work``, at the reference's block shapes) over the kernels'
+device time.
+
+Layer: block-core kernels. Moves: ``train_img_per_s``. Unit: %."""
+
+from benchmark import roofline
+
+LAYER = "block-core kernels"
+MOVES = "train_img_per_s"
+UNIT = "%"
+
+# the kernels of K1 and K3 (csrc/block_core2_fwd_sm90.cu): the fused wgmma
+# route, the two-pass route, the narrow route
+KERNELS = ("bc2_fwd_sm90", "bc_fwd_out_sm90", "bc_fwd_narrow")
+
+
+def read(run):
+    if run["kind"] != "train":
+        return None
+    return roofline.kernel_roofline_percent(run, KERNELS, "fwd")
